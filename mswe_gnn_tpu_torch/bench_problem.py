@@ -1,0 +1,61 @@
+"""The flagship problem of the JAX package's bench (bench.py:75-120), rebuilt
+through the port: a 152x152 dk15-class grid in 3 scales, previous_t=3,
+T=48 frames (a 47-step rollout), and the MSGNN of F=64, K=5, mlp_layers=3,
+PReLU/tanh, with_WL and learned residuals, in bf16.
+
+The state is random but plausible, drawn from seed 0 in the same order as
+bench.py draws it, so both packages build the same graph. The weights are
+initialised by the port from build_model's default seed (torch.Generator),
+so they are not the JAX package's numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from mswe_gnn_tpu_torch.data.dataset import (
+    SimulationRecord, fit_dataset_scalers, make_spec, process_record,
+    to_temporal_samples,
+)
+from mswe_gnn_tpu_torch.data.simulate import random_dem_fn
+from mswe_gnn_tpu_torch.data.synthetic import make_multiscale_grid
+from mswe_gnn_tpu_torch.models.registry import build_model
+
+
+NUM_SCALES, PREVIOUS_T = 3, 3
+
+
+def build_bench_sample(nx=152, ny=152, T=48):
+    """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
+    ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take."""
+    rng = np.random.default_rng(0)
+    dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
+    mesh = make_multiscale_grid(nx, ny, 100.0, NUM_SCALES, dem_fn, n_bc=4)
+    n = mesh.num_nodes
+    wd = np.abs(rng.normal(0.4, 0.3, (n, T))).astype(np.float32)
+    vx = rng.normal(0, 0.3, (n, T)).astype(np.float32)
+    vy = rng.normal(0, 0.3, (n, T)).astype(np.float32)
+    nbc = len(mesh.ghosts.ghost_nodes)
+    bc = np.abs(rng.normal(0.2, 0.1, (nbc, T))).astype(np.float32)
+    rec = SimulationRecord(mesh=mesh, wd=wd, vx=vx, vy=vy, bc_per_length=bc,
+                           temporal_res=120.0)
+    scalers = fit_dataset_scalers([rec], {"area_scaler": "standard",
+                                          "edge_length_scaler": "standard"})
+    proc = process_record(rec, scalers)
+    spec = make_spec(mesh, nbc, pad_multiple=128)
+    sample = to_temporal_samples(proc, spec, previous_t=PREVIOUS_T,
+                                 rollout_steps=-1)[0]
+    return sample, mesh
+
+
+def build_bench_model(sample, device=None):
+    """-> (cfg, params, apply_fn) of the bench model on ``device`` (default:
+    the GPU), weights from build_model's default seed."""
+    return build_model(
+        {"model_type": "MSGNN", "hid_features": 64, "K": 5, "mlp_layers": 3,
+         "learned_residuals": True, "with_WL": True, "gnn_activation": "tanh",
+         "mlp_activation": "prelu", "compute_dtype": "bfloat16",
+         "flat_hop_threshold": 2048},
+        num_node_features=sample.x_static.shape[1] + sample.x_dynamic.shape[1],
+        num_edge_features=sample.edge_attr.shape[1],
+        num_scales=sample.spec.num_scales, previous_t=sample.previous_t,
+        device=device)

@@ -1,0 +1,124 @@
+"""End-to-end synthetic dataset generation (mesh + simulation + record).
+
+Port of the grid path of mswe_gnn_tpu/data/synthetic.py: regular multiscale
+grid meshes, random cosine-mode terrain, Weibull hydrographs and the
+diffusive-wave solver of data/simulate.py. Triangulated meshes and storm
+forcing wait for ports of data/triangulate.py and the storm-field generator.
+"""
+from __future__ import annotations
+
+import time
+from typing import List
+
+import numpy as np
+
+from mswe_gnn_tpu_torch.data.dataset import SimulationRecord, pool_to_scales
+from mswe_gnn_tpu_torch.data.meshing import (
+    Mesh, MultiscaleMesh, add_ghost_cells, grid_mesh, stack_meshes,
+)
+from mswe_gnn_tpu_torch.data.simulate import (
+    random_dem_fn, random_hydrograph, run_diffusive_wave,
+)
+
+
+def make_multiscale_grid(nx: int, ny: int, dx: float, num_scales: int,
+                         dem_fn, n_bc: int = 2, type_bc: int = 2
+                         ) -> MultiscaleMesh:
+    """L-level grid hierarchy with ghost cells on the finest scale.
+
+    BC faces sit on the left boundary mid-height (a breach inflow).
+    """
+    meshes: List[Mesh] = []
+    base = grid_mesh(nx, ny, dx, dem_fn)
+    # BC faces: contiguous run on the left edge (i = 0), centered in y
+    j0 = ny // 2 - n_bc // 2
+    bc_faces = np.asarray([0 * ny + (j0 + k) for k in range(n_bc)], dtype=np.int64)
+    finest, ghosts = add_ghost_cells(base, bc_faces, type_bc=type_bc)
+    meshes.append(finest)
+    for s in range(1, num_scales):
+        f = 2 ** s
+        meshes.append(grid_mesh(max(nx // f, 1), max(ny // f, 1), dx * f, dem_fn))
+    return stack_meshes(meshes, ghosts=ghosts)
+
+
+def _strip_ghosts(mesh_with_ghosts: Mesh, n_ghost: int) -> Mesh:
+    """Physical sub-mesh: drop the trailing ghost cells and their edges."""
+    n_phys = mesh_with_ghosts.num_faces - n_ghost
+    keep = ((mesh_with_ghosts.dual_edge_index[0] < n_phys)
+            & (mesh_with_ghosts.dual_edge_index[1] < n_phys))
+    return Mesh(
+        face_xy=mesh_with_ghosts.face_xy[:n_phys],
+        area=mesh_with_ghosts.area[:n_phys],
+        dem=mesh_with_ghosts.dem[:n_phys],
+        dual_edge_index=mesh_with_ghosts.dual_edge_index[:, keep],
+        face_distance=mesh_with_ghosts.face_distance[keep],
+        face_relative_distance=mesh_with_ghosts.face_relative_distance[keep],
+        edge_slope=mesh_with_ghosts.edge_slope[keep],
+        shared_length=mesh_with_ghosts.shared_length[keep],
+        boundary_faces=mesh_with_ghosts.boundary_faces)
+
+
+def generate_simulation_record(
+    seed: int,
+    nx: int = 32,
+    ny: int = 32,
+    dx: float = 100.0,
+    num_scales: int = 3,
+    total_hours: float = 48.0,
+    temporal_res: float = 60.0,
+    n_bc: int = 2,
+    peak_discharge: float = 150.0,
+    substeps: int = 20,
+    mesh_type: str = "grid",
+    storm: bool = False,
+) -> SimulationRecord:
+    """One full synthetic simulation on a multiscale grid mesh; the same
+    record as the JAX package's for the same arguments."""
+    if mesh_type == "triangulated":
+        raise NotImplementedError(
+            "mesh_type='triangulated' needs data/triangulate.py, not ported yet")
+    if mesh_type != "grid":
+        raise ValueError(f"unknown mesh_type {mesh_type!r}")
+    if storm:
+        raise NotImplementedError("storm forcing is not ported yet")
+
+    rng = np.random.default_rng(seed)
+    dem_fn = random_dem_fn(rng, extent=nx * dx, relief=4.0)
+    mesh = make_multiscale_grid(nx, ny, dx, num_scales, dem_fn, n_bc=n_bc)
+    ghosts = mesh.ghosts
+    finest = mesh.meshes[0]
+
+    hydro = random_hydrograph(rng, total_hours=total_hours,
+                              dt_minutes=temporal_res,
+                              peak_discharge=peak_discharge)
+    # simulate on the physical (non-ghost) cells of the finest mesh
+    phys = _strip_ghosts(finest, len(ghosts.ghost_nodes))
+    t0 = time.time()
+    sim = run_diffusive_wave(phys, ghosts.bc_faces, hydro,
+                             dt_minutes=temporal_res, substeps=substeps)
+    solver_seconds = time.time() - t0
+
+    # ghost rows mirror their BC face (reference graph_creation.py:1466-1481)
+    def with_ghosts(a):
+        return np.concatenate([a, a[ghosts.bc_faces]], axis=0)
+
+    wd = pool_to_scales(with_ghosts(sim.wd), mesh)
+    vx = pool_to_scales(with_ghosts(sim.vx), mesh)
+    vy = pool_to_scales(with_ghosts(sim.vy), mesh)
+
+    # Zero-order-hold alignment (see mswe_gnn_tpu/data/synthetic.py): column
+    # t of the BC series holds the inflow of the interval (t, t+1] that the
+    # rollout step from frame t predicts, i.e. hydro[t+1]. Per-ghost inflow
+    # per unit BC-edge length (reference utils/dataset.py:275).
+    hydro_zoh = np.concatenate([hydro[1:], hydro[-1:]])
+    per_ghost = hydro_zoh[None, :] / max(len(ghosts.ghost_nodes), 1)
+    bc_per_length = per_ghost / ghosts.edge_bc_length[:, None]
+
+    return SimulationRecord(mesh=mesh, wd=wd, vx=vx, vy=vy,
+                            bc_per_length=bc_per_length,
+                            temporal_res=temporal_res,
+                            solver_seconds=solver_seconds)
+
+
+def generate_dataset(n_sims: int, seed: int = 0, **kwargs) -> List[SimulationRecord]:
+    return [generate_simulation_record(seed + i, **kwargs) for i in range(n_sims)]

@@ -1,0 +1,78 @@
+"""Loop-invariant graph work, done once per rollout (port of
+mswe_gnn_tpu/models/prepare.py for the MSGNN).
+
+Per rollout step the model would recompute work that depends only on the
+parameters and the graph topology: the encoded edge features, the
+slot-gathered edge features and the int32 slot-source tables that the hop
+kernel reads. ``prepare_graph`` computes them once and stores them on
+``FloodGraph.ell_cache``; the same operations run, once instead of T times.
+"""
+from __future__ import annotations
+
+import torch
+
+from mswe_gnn_tpu_torch.graph import FloodGraph
+from mswe_gnn_tpu_torch.models.mlp import apply_mlp
+
+
+def _slot_sources(src_local: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """[E_local] source ids + [N, D] slot->edge table -> [N, D] int32 slot
+    source rows."""
+    return src_local.index_select(0, tab.reshape(-1)).view(tab.shape).to(torch.int32)
+
+
+def _rebase(table: torch.Tensor, ptr: int) -> torch.Tensor:
+    """Global ids -> ids local to a block starting at ``ptr``. Masked slots
+    hold global id 0, which is clamped to the block's first entry (their
+    contribution is multiplied by 0)."""
+    return (table.long() - ptr).clamp_min(0)
+
+
+def _check_rows(tab: torch.Tensor, rows: int, what: str) -> None:
+    lo, hi = int(tab.min()), int(tab.max())
+    if lo < 0 or hi >= rows:
+        raise ValueError(f"{what} refers to rows [{lo}, {hi}] outside [0, {rows})")
+
+
+def _msgnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
+    spec = graph.spec
+    edge_attr = graph.edge_attr
+    if cfg.edge_mlp:
+        edge_attr = apply_mlp(params["edge_encoder"], edge_attr,
+                              activation=cfg.mlp_activation)
+    scales = []
+    for i in range(cfg.num_scales):
+        nsl, esl = spec.node_slice(i), spec.edge_slice(i)
+        tab = _rebase(graph.in_edge_table[nsl], spec.edge_ptr[i])
+        src_local = graph.edge_index[0, esl].long() - spec.node_ptr[i]
+        ea = edge_attr[esl]
+        ea_slots = ea.index_select(0, tab.reshape(-1)).view(*tab.shape, -1)
+        srcs = _slot_sources(src_local, tab)
+        _check_rows(srcs, spec.node_counts[i], f"scale {i} slot sources")
+        scales.append((tab, graph.in_edge_mask[nsl], srcs, ea_slots))
+    pools, unpools = [], []
+    for lvl in range(cfg.num_scales - 1):
+        isl = spec.intra_edge_slice(lvl)
+        fine_local = graph.intra_edge_index[1, isl].long() - spec.node_ptr[lvl]
+        coarse_local = graph.intra_edge_index[0, isl].long() - spec.node_ptr[lvl + 1]
+        csl, fsl = spec.node_slice(lvl + 1), spec.node_slice(lvl)
+        ptab = _rebase(graph.pool_table[csl], spec.intra_edge_ptr[lvl])
+        psrc = _slot_sources(fine_local, ptab)
+        _check_rows(psrc, spec.node_counts[lvl], f"level {lvl} pool sources")
+        pools.append((psrc, graph.pool_mask[csl]))
+        utab = _rebase(graph.unpool_table[fsl], spec.intra_edge_ptr[lvl])
+        usrc = _slot_sources(coarse_local, utab)
+        _check_rows(usrc, spec.node_counts[lvl + 1], f"level {lvl} un-pool sources")
+        unpools.append((utab, graph.unpool_mask[fsl], usrc))
+    return {"scales": tuple(scales), "pools": tuple(pools),
+            "unpools": tuple(unpools)}
+
+
+def prepare_graph(params: dict, cfg, graph: FloodGraph) -> FloodGraph:
+    """Attach the loop-invariant ELL cache for an MSGNN config (a no-op when
+    a cache is already attached)."""
+    if graph.ell_cache is not None:
+        return graph
+    if type(cfg).__name__ != "MSGNNConfig":
+        raise NotImplementedError(f"prepare_graph: {type(cfg).__name__} is not ported yet")
+    return graph.replace(ell_cache=_msgnn_cache(params, cfg, graph))

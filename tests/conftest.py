@@ -42,3 +42,8 @@ def rng():
 def _clear_jax_caches_per_module():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA); skips without one")

@@ -1,0 +1,80 @@
+"""Boundaries of the PyTorch port that every slice keeps:
+
+- ``mswe_gnn_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, its
+  libraries or the JAX package (an AST scan of every import);
+- the entry points run on the GPU unless the caller names a device, and
+  raise where there is none, with no silent CPU fallback.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from mswe_gnn_tpu_torch import resolve_device
+from mswe_gnn_tpu_torch.models import build_model, msgnn
+from mswe_gnn_tpu_torch.training.rollout import rollout
+from tests.torch_port_common import sample_pair
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mswe_gnn_tpu")
+
+
+def port_sources():
+    files = sorted((ROOT / "mswe_gnn_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = port_sources()
+    assert len(files) > 15
+    bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
+           for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_scan_sees_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from mswe_gnn_tpu.graph import FloodGraph\n"
+                     "import jax.numpy as jnp\n")
+    assert sorted(imported_modules(probe)) == ["jax.numpy", "mswe_gnn_tpu.graph"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+MODEL_KW = dict(num_node_features=6, num_edge_features=1, num_scales=3, previous_t=2)
+
+
+def test_resolve_device(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_model_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model({"hid_features": 8}, **MODEL_KW)
+    cfg, params, _ = build_model({"hid_features": 8}, device="cpu", **MODEL_KW)
+    assert params["node_decoder"]["layers"][0]["w"].device.type == "cpu"
+
+
+def test_rollout_without_device_raises_without_cuda(no_cuda):
+    _, g = sample_pair(previous_t=2, rollout_steps=2, index=0)
+    kw = dict(MODEL_KW, num_node_features=g.x_static.shape[1] + g.x_dynamic.shape[1],
+              num_edge_features=g.edge_attr.shape[1])
+    cfg, params, apply_fn = build_model({"hid_features": 8}, device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rollout(apply_fn, params, cfg, g, steps=2)
+    preds = rollout(apply_fn, params, cfg, g, steps=2, device="cpu")
+    assert preds.shape == (g.num_nodes, 2, 2) and apply_fn is msgnn.apply_msgnn
