@@ -3,28 +3,43 @@ NVIDIA H100.
 
 A port of the JAX package ``mswe_gnn_tpu`` beside it, which stays the
 reference the port is tested against. Host-side graph building is numpy, the
-models are plain functions on tensors, and the SWE-GNN hop runs in a CUDA
-kernel written for Hopper (``ops/csrc/hop.cu``). This package imports torch,
-numpy and the standard library only.
+models are plain functions on tensors, and the SWE-GNN hop and its gradient
+run in CUDA kernels written for Hopper (``ops/csrc/``: the ELL hop and the
+banded hop, forward and backward). This package imports torch, numpy and
+the standard library only.
 
-Entry points (``models.build_model``, ``training.rollout.rollout``) run on
-the GPU unless the caller passes ``device="cpu"``; without a GPU and without
-a device they raise.
+Entry points (``models.build_model``, ``training.rollout.rollout``,
+``training.train.Trainer``, ``train_step``, ``eval_step``) run on the GPU
+unless the caller passes ``device="cpu"`` (or a graph on the CPU); without a
+GPU and without a device they raise.
 """
 import torch
 
 NUM_WATER_VARS = 2  # water depth h and unit-discharge magnitude |q|
 
 
-def tree_to(tree, device):
-    """A tree of tensors (nested dicts, lists and tuples) on ``device``."""
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a tree (nested dicts, lists and
+    tuples); other leaves are kept as they are."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return tree
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, depth first in key order."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def tree_to(tree, device):
+    """A tree of tensors on ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -7,26 +7,40 @@ The state is random but plausible, drawn from seed 0 in the same order as
 bench.py draws it, so both packages build the same graph. The weights are
 initialised by the port from build_model's default seed (torch.Generator),
 so they are not the JAX package's numbers.
+
+``build_bench_sample(band=True)`` attaches the band plan with its defaults,
+as bench.py:121-131 does; ``BenchTrainStep`` is the train step of
+bench.py:304-341 (``bench_training``): a 6-step pushforward with remat,
+batch 1, ``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
+from mswe_gnn_tpu_torch import resolve_device, tree_to
 from mswe_gnn_tpu_torch.data.dataset import (
     SimulationRecord, fit_dataset_scalers, make_spec, process_record,
     to_temporal_samples,
 )
 from mswe_gnn_tpu_torch.data.simulate import random_dem_fn
 from mswe_gnn_tpu_torch.data.synthetic import make_multiscale_grid
+from mswe_gnn_tpu_torch.graph import FloodGraph
 from mswe_gnn_tpu_torch.models.registry import build_model
+from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
+from mswe_gnn_tpu_torch.training.train import (Optimizer, TrainerOptions, clone_tree,
+                                               make_optimizer, train_step)
 
 
 NUM_SCALES, PREVIOUS_T = 3, 3
+TRAIN_ROLLOUT_STEPS = 6
 
 
-def build_bench_sample(nx=152, ny=152, T=48):
+def build_bench_sample(nx=152, ny=152, T=48, band=False):
     """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
-    ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take."""
+    ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take;
+    ``band`` attaches the band plan (``attach_band_plan`` defaults)."""
     rng = np.random.default_rng(0)
     dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
     mesh = make_multiscale_grid(nx, ny, 100.0, NUM_SCALES, dem_fn, n_bc=4)
@@ -44,6 +58,8 @@ def build_bench_sample(nx=152, ny=152, T=48):
     spec = make_spec(mesh, nbc, pad_multiple=128)
     sample = to_temporal_samples(proc, spec, previous_t=PREVIOUS_T,
                                  rollout_steps=-1)[0]
+    if band:
+        sample = attach_band_plan(sample)
     return sample, mesh
 
 
@@ -59,3 +75,37 @@ def build_bench_model(sample, device=None):
         num_edge_features=sample.edge_attr.shape[1],
         num_scales=sample.spec.num_scales, previous_t=sample.previous_t,
         device=device)
+
+
+@dataclasses.dataclass
+class BenchTrainStep:
+    """The train step of bench_training on one graph; calling it takes one
+    step, updates ``params`` in place and returns the loss (a tensor)."""
+    apply_fn: object
+    cfg: object
+    params: dict
+    graph: FloodGraph
+    opts: TrainerOptions
+    optimizer: Optimizer
+    opt_state: dict
+    rollout_steps: int = TRAIN_ROLLOUT_STEPS
+
+    def __call__(self):
+        _, _, loss = train_step(self.params, self.opt_state, self.graph,
+                                apply_fn=self.apply_fn, cfg=self.cfg,
+                                rollout_steps=self.rollout_steps, opts=self.opts,
+                                multiscale=True, optimizer=self.optimizer,
+                                device=self.graph.x_static.device)
+        return loss
+
+
+def build_bench_train_step(sample, cfg, params, apply_fn, device=None) -> BenchTrainStep:
+    """bench_training's settings on ``device`` (default: the GPU): the
+    graph and a copy of the parameters moved there, a fresh optimizer."""
+    device = resolve_device(device)
+    opts = TrainerOptions(batch_size=1, velocity_scaler=7.0, remat=True)
+    optimizer = make_optimizer(opts, steps_per_epoch=1)
+    params = clone_tree(tree_to(params, device))
+    return BenchTrainStep(apply_fn=apply_fn, cfg=cfg, params=params,
+                          graph=sample.to(device), opts=opts, optimizer=optimizer,
+                          opt_state=optimizer.init(params))

@@ -45,8 +45,9 @@ def load_jax_params(tree: dict, cfg: MSGNNConfig, device=None) -> dict:
 
 
 def to_numpy_tree(params):
-    """The port's parameter tree -> the same tree of float32 numpy arrays,
-    in the layout the JAX package's ``apply_msgnn`` takes."""
+    """The port's parameter tree, or a gradient tree of the same layout
+    (``training.train.loss_and_grads``) -> the same tree of float32 numpy
+    arrays, in the layout of the JAX package's parameters and ``jax.grad``."""
     if isinstance(params, torch.Tensor):
         return params.detach().to("cpu", torch.float32).numpy()
     if isinstance(params, dict):

@@ -110,6 +110,10 @@ class FloodGraph:
       ``unpool_table`` (parent edges)
     - ``ell_cache``: loop-invariant tables attached by
       ``models.prepare.prepare_graph``
+    - ``band_plan``: ``{"scales": (None | {"win", "idx_rel"}, ...)}``, the
+      banded-hop plan of every scale, and ``band_meta``: its per-scale
+      ``(ws, we)`` widths (None where a scale has no plan); attached on the
+      host by ``ops.band_hop.attach_band_plan``
     """
     x_static: torch.Tensor
     x_dynamic: torch.Tensor
@@ -134,6 +138,8 @@ class FloodGraph:
     y: Optional[torch.Tensor] = None
     forcing: Optional[torch.Tensor] = None
     ell_cache: Optional[dict] = None
+    band_plan: Optional[dict] = None
+    band_meta: Optional[Tuple] = None
     spec: GraphSpec = None
     previous_t: int = 1
     bc_kind: int = 2
@@ -147,7 +153,8 @@ class FloodGraph:
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "FloodGraph":
-        """The same graph with every tensor (the cache included) on ``device``."""
+        """The same graph with every tensor (the cache and the band plan
+        included) on ``device``."""
         device = torch.device(device)
         return dataclasses.replace(self, **{
             f.name: tree_to(getattr(self, f.name), device)

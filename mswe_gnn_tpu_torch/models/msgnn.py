@@ -9,8 +9,10 @@ V-cycle (scales ordered finest=0 ... coarsest=L-1):
                           SWEGNN over transfer edges, add skip connections
 
 The state is carried as per-scale blocks; each processor, pooling and
-un-pooling call touches only its scale's [N_scale, F] rows. Learned pooling
-is not ported yet and raises.
+un-pooling call touches only its scale's [N_scale, F] rows. A scale with a
+band plan (``graph.band_plan``, ops/band_hop.py:attach_band_plan) runs its
+processor hops through the banded kernel. Learned pooling is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -175,13 +177,22 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
     x_down_b = [None] * L
     x_up_b = [None] * L
 
+    def scale_band(i: int):
+        """Banded-hop plan of scale i and its widths (msgnn.py:278-282), if
+        attached."""
+        if graph.band_plan is None or graph.band_meta is None:
+            return None, None
+        return graph.band_plan["scales"][i], graph.band_meta[i]
+
     def processor(gnn_id: int, scale: int) -> torch.Tensor:
-        tab, tmask, srcs, ea_slots = cache["scales"][scale]
+        tab, tmask, srcs, ea_slots, out_table = cache["scales"][scale]
+        band_plan, band_w = scale_band(scale)
         return apply_swegnn_block(
             params["gnn_processor"][gnn_id], cfg.processor_cfg(ks[gnn_id]),
             xs_b[scale], xd_b[scale], xs_b[scale], xd_b[scale], None, None,
             same_block=True, agg_table=tab, agg_mask=tmask, ea_slots=ea_slots,
-            src_slot_table=srcs)
+            src_slot_table=srcs, band_plan=band_plan, band_w=band_w,
+            out_table=out_table)
 
     # --- downsweep: fine -> coarse, skipping the coarsest scale
     for i in range(L - 1):
@@ -202,13 +213,13 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
         x_up_b[scale] = xd_b[scale]
         if i < L - 1:
             lvl = scale - 1   # transfer level between scales lvl (fine) and scale
-            utab, umask, usrc = cache["unpools"][lvl]
+            utab, umask, usrc, out_table = cache["unpools"][lvl]
             # messages flow coarse -> fine (src = coarse, dst = fine)
             xd_b[lvl] = apply_swegnn_block(
                 params["intra_scale_gnn"][i], cfg.intra_cfg(),
                 xs_b[scale], xd_b[scale], xs_b[lvl], xd_b[lvl], None, None,
                 same_block=False, dst_sorted=False, agg_table=utab,
-                agg_mask=umask, src_slot_table=usrc)
+                agg_mask=umask, src_slot_table=usrc, out_table=out_table)
             if cfg.skip_connections:
                 xd_b[lvl] = xd_b[lvl] + x_down_b[lvl]
 

@@ -3,9 +3,16 @@ mswe_gnn_tpu/models/prepare.py for the MSGNN).
 
 Per rollout step the model would recompute work that depends only on the
 parameters and the graph topology: the encoded edge features, the
-slot-gathered edge features and the int32 slot-source tables that the hop
-kernel reads. ``prepare_graph`` computes them once and stores them on
+slot-gathered edge features, the int32 slot-source tables that the hop
+kernels read and, with gradients on, the out-slot tables (for every source
+row, the slots that read it) that the hop backward kernels read; with
+gradients off (the rollout) no backward runs, and they are left None.
+``prepare_graph`` computes them once and stores them on
 ``FloodGraph.ell_cache``; the same operations run, once instead of T times.
+
+Training builds the cache inside the loss, every step, with gradients on
+(``training/train.py``), so that the edge encoder gets its gradient: a
+graph that arrives with a cache attached would cut it off.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import torch
 
 from mswe_gnn_tpu_torch.graph import FloodGraph
 from mswe_gnn_tpu_torch.models.mlp import apply_mlp
+from mswe_gnn_tpu_torch.ops.hop import out_slot_table
 
 
 def _slot_sources(src_local: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
@@ -34,6 +42,16 @@ def _check_rows(tab: torch.Tensor, rows: int, what: str) -> None:
         raise ValueError(f"{what} refers to rows [{lo}, {hi}] outside [0, {rows})")
 
 
+def _out_table(srcs: torch.Tensor, n_src: int, mask: torch.Tensor, what: str):
+    """The out-slot table of a hop for its backward kernel, or None with
+    gradients off."""
+    if not torch.is_grad_enabled():
+        return None
+    out_ptr, out_slots = out_slot_table(srcs, n_src, mask)
+    _check_rows(out_slots, max(srcs.numel(), 1), what)
+    return out_ptr, out_slots
+
+
 def _msgnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
     spec = graph.spec
     edge_attr = graph.edge_attr
@@ -49,7 +67,12 @@ def _msgnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
         ea_slots = ea.index_select(0, tab.reshape(-1)).view(*tab.shape, -1)
         srcs = _slot_sources(src_local, tab)
         _check_rows(srcs, spec.node_counts[i], f"scale {i} slot sources")
-        scales.append((tab, graph.in_edge_mask[nsl], srcs, ea_slots))
+        # masked slots carry zero flux: the out-slot table leaves them out
+        # (this also serves the band kernels, whose real slots read the
+        # same rows)
+        out_table = _out_table(srcs, spec.node_counts[i], graph.in_edge_mask[nsl],
+                               f"scale {i} out-slots")
+        scales.append((tab, graph.in_edge_mask[nsl], srcs, ea_slots, out_table))
     pools, unpools = [], []
     for lvl in range(cfg.num_scales - 1):
         isl = spec.intra_edge_slice(lvl)
@@ -63,7 +86,9 @@ def _msgnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
         utab = _rebase(graph.unpool_table[fsl], spec.intra_edge_ptr[lvl])
         usrc = _slot_sources(coarse_local, utab)
         _check_rows(usrc, spec.node_counts[lvl + 1], f"level {lvl} un-pool sources")
-        unpools.append((utab, graph.unpool_mask[fsl], usrc))
+        out_table = _out_table(usrc, spec.node_counts[lvl + 1], graph.unpool_mask[fsl],
+                               f"level {lvl} un-pool out-slots")
+        unpools.append((utab, graph.unpool_mask[fsl], usrc, out_table))
     return {"scales": tuple(scales), "pools": tuple(pools),
             "unpools": tuple(unpools)}
 

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from mswe_gnn_tpu_torch import resolve_device, tree_to
+from mswe_gnn_tpu_torch import resolve_device, tree_leaves, tree_to
 from mswe_gnn_tpu_torch.models.msgnn import MSGNNConfig, apply_msgnn, init_msgnn
 
 
@@ -41,10 +41,4 @@ def build_model(model_cfg: dict, num_node_features: int, num_edge_features: int,
 
 
 def count_params(params) -> int:
-    if isinstance(params, torch.Tensor):
-        return params.numel()
-    if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
-    if isinstance(params, (list, tuple)):
-        return sum(count_params(v) for v in params)
-    return 0
+    return sum(p.numel() for p in tree_leaves(params))

@@ -1,5 +1,5 @@
 """SWEGNN — the shallow-water-equations message-passing layer (port of the
-ELL path of mswe_gnn_tpu/models/swegnn.py).
+ELL and band paths of mswe_gnn_tpu/models/swegnn.py).
 
     out_0 = H_0 x_d                         (filter matrix, optional)
     for k in 1..K:
@@ -8,15 +8,18 @@ ELL path of mswe_gnn_tpu/models/swegnn.py).
         out  += H_k agg
 
 The flux is computed once per layer in ELL slot layout ``[Nd, D, F]``, and
-every hop of every layer — the processor hops and the un-pooling hop
-(``same_block=False``) — runs the hand-written kernel of ``ops/hop.py``.
+every hop of every layer runs a hand-written kernel: the banded hop of
+``ops/band_hop.py`` on a same-block scale that carries a band plan
+(swegnn.py:349-369), else the ELL hop of ``ops/hop.py`` (the processor hops
+of unplanned scales and the un-pooling hop, ``same_block=False``). Both are
+differentiable through their backward kernels.
 
 Not ported yet, and raising if reached: the edge-major segment-sum path
-(no ``agg_table``), the banded MXU hop (``band_plan``) and concat batching
-(``sub_blocks > 1``). ``SWEGNNConfig.use_pallas`` and ``flat_hop_threshold``
-are accepted so that the JAX package's config dicts build, and have no
-effect here: the JAX package's slot loop, flat path and Pallas hop all
-compute the same hop, which the port always runs through its kernel.
+(no ``agg_table``) and concat batching (``sub_blocks > 1``).
+``SWEGNNConfig.use_pallas`` and ``flat_hop_threshold`` are accepted so that
+the JAX package's config dicts build, and have no effect here: the JAX
+package's slot loop, flat path and Pallas hop all compute the same hop,
+which the port always runs through its kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from mswe_gnn_tpu_torch.models.activations import apply_activation
 from mswe_gnn_tpu_torch.models.mlp import apply_linear, apply_mlp, init_linear, init_mlp, matmul
+from mswe_gnn_tpu_torch.ops.band_hop import band_hop
 from mswe_gnn_tpu_torch.ops.hop import hop
 
 
@@ -141,6 +145,7 @@ def apply_swegnn_block(
     band_plan: Optional[dict] = None,
     band_w=None,
     sub_blocks: int = 1,
+    out_table=None,
 ) -> torch.Tensor:
     """One SWEGNN layer on block-local tensors -> updated dst block [Nd, F].
 
@@ -150,15 +155,16 @@ def apply_swegnn_block(
     the sources stay constant across hops.
 
     ``agg_table``/``agg_mask`` [Nd, D] are the ELL slots (edge ids local to
-    the edge block). ``src_slot_table [Nd, D]`` int32 (slot source rows) and
-    ``ea_slots [Nd, D, Fe]`` (slot edge features) are the loop-invariant
+    the edge block). ``src_slot_table [Nd, D]`` int32 (slot source rows),
+    ``ea_slots [Nd, D, Fe]`` (slot edge features) and ``out_table`` (the
+    out-slot table the hop backward kernels read) are the loop-invariant
     tables of models/prepare.py; they are derived here when not given.
+    ``band_plan`` (``{"win", "idx_rel"}``) with ``band_w = (ws, we)`` sends
+    the hops of a same-block layer through the banded kernel.
     """
     if agg_table is None:
         raise NotImplementedError("the edge-major segment-sum path is not ported; "
                                   "pass the ELL agg_table")
-    if band_plan is not None:
-        raise NotImplementedError("the banded hop (ops/band_hop.py) is not ported yet")
     if sub_blocks != 1:
         raise NotImplementedError("concat batching (sub_blocks > 1) is not ported yet")
     cd = _compute_dtype(cfg)
@@ -185,9 +191,22 @@ def apply_swegnn_block(
         s_tab = s_tab.to(getattr(torch, cd))
         out = out.to(getattr(torch, cd))
         out_src = out if same_block else out_src.to(getattr(torch, cd))
+    if band_plan is not None and band_w is not None and same_block:
+        # banded hop (swegnn.py:349-369): the flux table as [Nd, D*F]
+        ws, we = band_w
+        s_flat = s_tab.reshape(s_tab.shape[0], -1)
+
+        def one_hop(state):
+            return band_hop(state, s_flat, band_plan["idx_rel"], band_plan["win"], ws=ws,
+                            we=we, with_gradient=cfg.with_gradient,
+                            upwind=cfg.upwind_mode, out_table=out_table)
+    else:
+        def one_hop(state):
+            return hop(state, state if same_block else out_src, src_slot_table, s_tab,
+                       with_gradient=cfg.with_gradient, upwind=cfg.upwind_mode,
+                       out_table=out_table)
     for k in range(cfg.K):
-        agg = hop(out, out if same_block else out_src, src_slot_table, s_tab,
-                  with_gradient=cfg.with_gradient, upwind=cfg.upwind_mode)
+        agg = one_hop(out)
         if cfg.with_filter_matrix:
             agg = apply_linear(params["filters"][k + 1], agg, compute_dtype=cd)
         if cd is not None:

@@ -1,12 +1,16 @@
-"""Where the time of the port's bench rollout goes, on one NVIDIA GPU.
+"""Where the time of the port's bench rollout (or train step) goes, on one
+NVIDIA GPU.
 
-    python3 -m mswe_gnn_tpu_torch.profile_rollout [--trace PATH]
+    python3 -m mswe_gnn_tpu_torch.profile_rollout [--train] [--trace PATH]
 
 Builds the bench problem (bench_problem.py: 152x152 grid, 3 scales, F=64,
 K=5, bf16, 47 steps), runs one rollout to warm up, then traces one rollout
-with torch.profiler (CPU and CUDA activities) and prints one JSON line:
+with torch.profiler (CPU and CUDA activities) and prints one JSON line.
+With ``--train`` it does the same for one train step of bench.py's
+``bench_training`` instead (band plan attached, 6-step pushforward, remat,
+batch 1), and ``steps`` counts the pushforward's model steps:
 
-- ``wall_ms``: the traced rollout, host clock, ending in a synchronize;
+- ``wall_ms``: the traced run, host clock, ending in a synchronize;
 - ``device_busy_ms``: the union of the GPU kernel and copy intervals, and
   ``idle_share`` = 1 - busy / wall;
 - ``kernels_per_step``: GPU kernels launched per rollout step;
@@ -25,7 +29,8 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mswe_gnn_tpu_torch.bench_problem import build_bench_model, build_bench_sample
+from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sample,
+                                              build_bench_train_step)
 from mswe_gnn_tpu_torch.training.rollout import rollout
 
 
@@ -56,20 +61,29 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trace", help="write the Chrome trace to this path")
     parser.add_argument("--top", type=int, default=12)
+    parser.add_argument("--train", action="store_true",
+                        help="profile one bench train step instead of the rollout")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_rollout: no CUDA device")
     device = torch.device("cuda")
-    sample, _ = build_bench_sample()
+    sample, _ = build_bench_sample(band=args.train)
     cfg, params, apply_fn = build_bench_model(sample, device=device)
-    graph = sample.to(device)
-    steps = sample.y.shape[-1]
-    rollout(apply_fn, params, cfg, graph, steps, device=device)
+    if args.train:
+        run = build_bench_train_step(sample, cfg, params, apply_fn, device=device)
+        steps = run.rollout_steps
+    else:
+        graph = sample.to(device)
+        steps = sample.y.shape[-1]
+
+        def run():
+            rollout(apply_fn, params, cfg, graph, steps, device=device)
+    run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(apply_fn, params, cfg, graph, steps, device=device)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_intervals(prof)
@@ -82,7 +96,8 @@ def main(argv=None) -> None:
         per_name[name][1] += (end - start) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     result = {
-        "device": torch.cuda.get_device_name(0), "steps": steps,
+        "device": torch.cuda.get_device_name(0),
+        "run": "train_step" if args.train else "rollout", "steps": steps,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": len(events) / steps,

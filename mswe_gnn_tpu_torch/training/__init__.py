@@ -1,1 +1,1 @@
-"""Autoregressive rollout."""
+"""Autoregressive rollout, losses and training."""

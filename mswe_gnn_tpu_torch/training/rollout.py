@@ -25,6 +25,13 @@ def bc_window(graph: FloodGraph, step: int) -> torch.Tensor:
     return graph.bc_values[:, step: step + graph.previous_t]
 
 
+def bc_step_inflow(graph: FloodGraph, step: int) -> torch.Tensor:
+    """Inflow driving rollout step ``step``'s transition: the BC value at the
+    last input frame's timestamp (rollout.py:40-47), which the
+    mass-conservation loss uses."""
+    return bc_window(graph, step)[:, -1]
+
+
 def inject_bc(x_dynamic: torch.Tensor, graph: FloodGraph,
               window: torch.Tensor) -> torch.Tensor:
     """Write BC values into the ghost-cell rows of the dynamic features

@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: the hop kernel against its plain version, and
-the model and rollout on the card against the port on the CPU.
+"""The port on an NVIDIA GPU: every kernel (the ELL hop, the banded hop and
+their backwards) against its plain version, and the model, the rollout and
+a train step on the card against the port on the CPU.
 
 Marked ``gpu``; each test skips without CUDA (decided inside the fixture).
 Run on a machine with one NVIDIA GPU, from the repository root:
@@ -10,17 +11,23 @@ Tolerances: the kernel adds the same float32 terms in the same order as
 ``hop_reference``, so float32 agrees to 1e-6 (1 + |ref|) and bfloat16 within
 one bf16 ulp (``chip_smoke.within_limit``, the smoke test's limit). The
 model on the card against the CPU: rtol 1e-5, atol 1e-4 in float32 —
-cuBLAS sums the matmuls in another order.
+cuBLAS sums the matmuls in another order. A train step (loss and
+gradients) on the card against the CPU: the loss within rtol 1e-5, every
+gradient leaf within 1e-4 * max|leaf| + 1e-6.
 """
 import pytest
 import torch
 
-from chip_smoke import make_hop_inputs, within_limit
-from mswe_gnn_tpu_torch import tree_to
+from chip_smoke import (band_inputs, banded_problem, make_hop_inputs, slot_mask_of, upstream,
+                        within_limit)
+from mswe_gnn_tpu_torch import tree_leaves, tree_to
+from mswe_gnn_tpu_torch.bench_problem import build_bench_sample
 from mswe_gnn_tpu_torch.data import dataset as port_dataset
 from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
 from mswe_gnn_tpu_torch.models import build_model
+from mswe_gnn_tpu_torch.ops import band_hop as band_ops
 from mswe_gnn_tpu_torch.ops import hop as hop_ops
+from mswe_gnn_tpu_torch.training import train as port_train
 from mswe_gnn_tpu_torch.training.rollout import rollout
 
 pytestmark = pytest.mark.gpu
@@ -76,3 +83,85 @@ def test_rollout_on_the_card_matches_the_cpu(cuda, small_problem):
     assert got.device.type == "cuda"
     assert hop_ops.launches == 3 * (sum(cfg.k_schedule) + cfg.num_scales - 1)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("n_dst,n_src,feat,same_block", [
+    (1000, 1000, 64, True), (517, 130, 64, False), (333, 333, 20, True)])
+def test_backward_kernel_matches_plain_version(cuda, dtype, with_gradient, upwind,
+                                               n_dst, n_src, feat, same_block):
+    args = make_hop_inputs(1, n_dst, n_src, 4, feat, dtype, same_block, cuda)
+    table = hop_ops.out_slot_table(args[2], args[1].shape[0], slot_mask_of(args[3]))
+    g = upstream(2, args[0])
+    before = hop_ops.bwd_launches
+    got = hop_ops.hop_backward(*args, g, *table, with_gradient, upwind)
+    assert hop_ops.bwd_launches == before + 1
+    want = hop_ops.hop_backward_reference(*args, g, *table, with_gradient, upwind)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            ok, err = within_limit(a, b, dtype)
+            assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("tail", [0, 40])
+def test_band_kernels_match_plain_versions(cuda, dtype, with_gradient, upwind, tail):
+    plan, mask = banded_problem(3, 1024, 4, 6 if tail else 40, 64, tail)
+    state, s, idx_rel, win = band_inputs(4, plan, mask, 64, dtype)
+    kw = dict(ws=plan.ws, we=plan.we, with_gradient=with_gradient, upwind=upwind)
+    before = (band_ops.launches, band_ops.bwd_launches)
+    ok, err = within_limit(band_ops.band_hop(state, s, idx_rel, win, **kw),
+                           band_ops.band_hop_reference(state, s, idx_rel, win, **kw), dtype)
+    assert ok, err
+    src = band_ops.band_sources(idx_rel, win, plan.ws, plan.we)
+    table = hop_ops.out_slot_table(src, len(src), mask.to(cuda))
+    g = upstream(5, state)
+    got = band_ops.band_hop_backward(state, s, idx_rel, win, g, *table, **kw)
+    want = band_ops.band_hop_backward_reference(state, s, idx_rel, win, g, *table, **kw)
+    assert (band_ops.launches, band_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        ok, err = within_limit(a, b, dtype)
+        assert ok, err
+
+
+def test_hop_on_the_card_carries_its_gradient(cuda):
+    dst, src, tab, s = make_hop_inputs(7, 300, 300, 4, 64, torch.float32, True, cuda)
+    dst.requires_grad_(True)
+    s.requires_grad_(True)
+    out = hop_ops.hop(dst, dst, tab, s)
+    assert out.grad_fn is not None
+    before = hop_ops.bwd_launches
+    g_dst, g_s = torch.autograd.grad(out.square().sum(), (dst, s))
+    assert hop_ops.bwd_launches == before + 1
+    ref = hop_ops.hop_reference(dst, dst, tab, s)
+    w_dst, w_s = torch.autograd.grad(ref.square().sum(), (dst, s))
+    torch.testing.assert_close(g_dst, w_dst, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g_s, w_s, rtol=1e-5, atol=1e-5)
+    with torch.inference_mode():       # the rollout: no graph, one forward launch
+        before = hop_ops.launches
+        assert hop_ops.hop(dst, dst, tab, s).grad_fn is None
+        assert hop_ops.launches == before + 1
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    sample, _ = build_bench_sample(16, 16, 4, band=False)
+    graph = band_ops.attach_band_plan(sample, min_nodes=128)
+    cfg, params, apply_fn = build_model(
+        {"hid_features": 16, "K": 2, "learned_residuals": True, "with_WL": True},
+        num_node_features=graph.x_static.shape[1] + graph.x_dynamic.shape[1],
+        num_edge_features=graph.edge_attr.shape[1], num_scales=3, previous_t=3,
+        device="cpu")
+    opts = port_train.TrainerOptions(batch_size=1, velocity_scaler=7.0, remat=True)
+    want_loss, want = port_train.loss_and_grads(apply_fn, params, cfg, graph, 2, opts, True)
+    hop_ops.reset_launches()
+    band_ops.reset_launches()
+    loss, grads = port_train.loss_and_grads(apply_fn, tree_to(params, cuda), cfg,
+                                            graph.to(cuda), 2, opts, True)
+    assert band_ops.launches == 2 * band_ops.bwd_launches > 0     # remat: forward twice
+    assert hop_ops.launches == 2 * hop_ops.bwd_launches > 0
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-6)

@@ -2,6 +2,7 @@
 the same records, samples and weights for the JAX package and the port."""
 import jax
 import numpy as np
+import torch
 
 from mswe_gnn_tpu.data import dataset as jax_dataset
 from mswe_gnn_tpu.data.synthetic import generate_dataset as jax_generate
@@ -35,3 +36,45 @@ def sample_pair(n_records=2, previous_t=2, rollout_steps=4, index=1):
 def numpy_tree(params):
     """A JAX parameter pytree as nested dicts/lists of numpy arrays."""
     return jax.tree_util.tree_map(np.asarray, params)
+
+
+def jax_bench_sample(nx, ny, T):
+    """The sample of bench.py:75-120 (build_bench_problem) built by the JAX
+    package at a small grid, without its model: padded to multiples of 128
+    rows, as the band planner needs."""
+    from mswe_gnn_tpu.data.simulate import random_dem_fn
+    from mswe_gnn_tpu.data.synthetic import make_multiscale_grid
+
+    rng = np.random.default_rng(0)
+    dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
+    mesh = make_multiscale_grid(nx, ny, 100.0, 3, dem_fn, n_bc=4)
+    n = mesh.num_nodes
+    wd = np.abs(rng.normal(0.4, 0.3, (n, T))).astype(np.float32)
+    vx = rng.normal(0, 0.3, (n, T)).astype(np.float32)
+    vy = rng.normal(0, 0.3, (n, T)).astype(np.float32)
+    nbc = len(mesh.ghosts.ghost_nodes)
+    bc = np.abs(rng.normal(0.2, 0.1, (nbc, T))).astype(np.float32)
+    rec = jax_dataset.SimulationRecord(mesh=mesh, wd=wd, vx=vx, vy=vy,
+                                       bc_per_length=bc, temporal_res=120.0)
+    scalers = jax_dataset.fit_dataset_scalers([rec], SCALER_KINDS)
+    proc = jax_dataset.process_record(rec, scalers)
+    spec = jax_dataset.make_spec(mesh, nbc, pad_multiple=128)
+    return jax_dataset.to_temporal_samples(proc, spec, previous_t=3, rollout_steps=-1)[0]
+
+
+def bench_sample_pair(nx=16, ny=16, T=6):
+    """(JAX FloodGraph, port FloodGraph) of the bench problem's sample at an
+    ``nx`` x ``ny`` grid with ``T`` frames, both without a band plan."""
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_sample
+
+    return jax_bench_sample(nx, ny, T), build_bench_sample(nx, ny, T)[0]
+
+
+def without_subnormal_targets(jg, pg):
+    """Both graphs with the subnormal entries of ``y`` set to 0. XLA on the
+    CPU flushes subnormal floats to zero and PyTorch does not, so a target
+    of 1e-40 would count as wet in one package and dry in the other (the
+    synthetic solver leaves a few such depths)."""
+    y = np.asarray(jg.y)
+    y = np.where(np.abs(y) < np.finfo(np.float32).tiny, np.float32(0), y)
+    return jg.replace(y=jax.numpy.asarray(y)), pg.replace(y=torch.from_numpy(y.copy()))
