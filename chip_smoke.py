@@ -9,7 +9,9 @@ Phases, each printing its own lines:
 1. device  -- exits non-zero without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
 2. build   -- compiles ``mswe_gnn_tpu_torch/ops/csrc/hop.cu`` and
-   ``band_hop.cu`` for sm_90a, one ``nvcc`` each, in parallel.
+   ``band_hop.cu`` for sm_90a, one ``nvcc`` each, in parallel; prints the
+   registers, stack frame and spills of every kernel, and fails if a
+   forward instantiation has a stack frame or spills.
 3. kernels -- every kernel against its plain PyTorch version on the card:
    the ELL hop and its backward (every mode, both dtypes, same-block and
    separate-source calls, ragged shapes and the bench shapes), the banded
@@ -18,17 +20,21 @@ Phases, each printing its own lines:
    the same bits.
 4. serving -- the bench problem of ``bench.py:75-120`` rebuilt through the
    port (152x152 grid, 3 scales, F=64, K=5, bf16), its 47-step rollout on
-   the card with the hop-kernel launches counted, the first step held
-   against the same step through the plain hop, and the rollout and the hop
-   timed.
+   the card with the hop-kernel launches counted by kernel and by shape
+   ``(Nd, Ns)`` and held against the config's, the first step held
+   against the same step through the plain hop, and the rollout timed.
 5. train   -- the train step of ``bench.py:304-341`` on the same graph with
    its band plan: a 6-step pushforward with remat, batch 1. The launches of
    every kernel in one step, counted and held against the counts the
    config gives; the gradients against the same step through the plain
-   hops, in bf16 and in float32; a warm-up step and 3 timed ones, the loss finite and falling; one
+   hops, in bf16 and in float32; a warm-up step (its launches counted by
+   shape too) and 3 timed ones, the loss finite and falling; one
    ``eval_step`` over the 47-step graph; peak device memory.
-6. timing  -- every new kernel at the bench shapes: kernel, L2 flushed,
-   plain version and bound.
+6. timing  -- every kernel at the bench shapes, on the bench graph's own
+   tables and plans: kernel, L2 flushed, plain version, bound, the launch
+   floor of the harness, the forward's launch (block, registers, warps an
+   SM), and the launches of each shape on each path as phases 4 and 5
+   counted them, with their sum of launches x time.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
@@ -36,15 +42,19 @@ exits non-zero without printing a result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from unittest import mock
 
 import torch
@@ -85,15 +95,59 @@ def phase_device() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-def phase_build() -> None:
+_PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_KERNEL = re.compile(r"(hop_(?:fwd|bwd)_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ENS_\d+"
+                     r"(\w+?Addr)E")
+
+
+def ptxas_functions(log_text: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> ``{function: {"registers", "stack",
+    "spill_stores", "spill_loads"}}``, the hop kernels under readable names
+    (``hop_fwd_kernel<bf16, V=8, CPL=1, EllAddr>``)."""
+    out, fn = {}, None
+    for ln in log_text.splitlines():
+        m = _PTXAS_FN.search(ln)
+        if m:
+            k = _KERNEL.search(m.group(1))
+            fn = (f"{k[1]}<{'f32' if k[2] == 'f' else 'bf16'}, V={k[3]}, CPL={k[4]}, {k[5]}>"
+                  if k else m.group(1))
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_FRAME.search(ln)
+        if m:
+            out[fn].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = _PTXAS_REGS.search(ln)
+        if m:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
+def phase_build() -> dict:
+    """Builds both libraries; prints registers, stack frame and spills of
+    every kernel, and fails if a forward instantiation has a stack frame or
+    spills (its slot batches are meant to live in registers)."""
     t0 = time.perf_counter()
     built = kernel_build.build()
+    functions = {}
     for name, info in built.items():
         log(f"[build] {SOURCES[name]} -> {info['path']} in {info['seconds']:.1f} s")
-        for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"[build]   {ln.strip()}")
+        for fn, r in ptxas_functions(info["log"]).items():
+            log(f"[build]   {fn}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+                f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill stores/loads")
+            functions[fn] = r
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    fwd = {fn: r for fn, r in functions.items() if fn.startswith("hop_fwd_kernel")}
+    bad = [fn for fn, r in fwd.items()
+           if r.get("stack") != 0 or r.get("spill_stores") != 0 or r.get("spill_loads") != 0]
+    if len(fwd) != 24 or bad:
+        raise AssertionError(f"forward instantiations: {len(fwd)} found (24 expected); "
+                             f"with a stack frame or spills: {bad}")
+    return functions
 
 
 # ---------------------------------------------------------------- phase 3
@@ -342,22 +396,21 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def hop_bound(n_dst, n_src, degree, feat, elem_bytes, same_block, ops_per_term):
+def hop_work(n_dst, n_src, degree, feat, elem_bytes, same_block, ops_per_term):
     """One forward hop: inputs read once, the output written once (a
-    same-block hop reads one state tensor) -> (ms, bytes, ops, bound_by)."""
+    same-block hop reads one state tensor) -> (bytes, ops)."""
     state = n_dst * feat * elem_bytes + (0 if same_block else n_src * feat * elem_bytes)
     nbytes = (state + n_dst * degree * 4 + n_dst * degree * feat * elem_bytes
               + n_dst * feat * elem_bytes)
     ops = n_dst * degree * feat * ops_per_term + n_dst * (degree + 1) * feat  # + row sums
-    ms, by = bound(nbytes, ops)
-    return ms, nbytes, ops, by
+    return nbytes, ops
 
 
-def hop_bwd_bound(n_dst, n_src, degree, feat, elem_bytes, same_block, with_gradient):
+def hop_bwd_work(n_dst, n_src, degree, feat, elem_bytes, same_block, with_gradient):
     """One backward hop: state(s), flux, upstream gradient and the slot
     table read once; the flux gradient and the state gradient(s) written
-    once -> (ms, bytes, ops, bound_by). The out-slot table is not counted:
-    the gradient does not need it, only the kernels' gather design does
+    once -> (bytes, ops). The out-slot table is not counted: the gradient
+    does not need it, only the kernels' gather design does
     (``table_bytes``). Operations: the flux gradient (2 a term), the gated
     diagonal term (2) and the gathered term (2), and the row sums."""
     row = feat * elem_bytes
@@ -368,8 +421,7 @@ def hop_bwd_bound(n_dst, n_src, degree, feat, elem_bytes, same_block, with_gradi
               + n_dst * degree * 4                      # slot sources
               + grads_out)
     ops = n_dst * degree * feat * (6 if with_gradient else 4) + (n_dst + n_src) * feat
-    ms, by = bound(nbytes, ops)
-    return ms, nbytes, ops, by
+    return nbytes, ops
 
 
 def event_time_ms(fn, reps: int) -> float:
@@ -418,29 +470,136 @@ def log_timing(name, row):
         f"{row['bound_by']}){extra}")
 
 
+def launch_floor_ms(reps=200) -> float:
+    """The harness's floor: a one-element PyTorch add, captured and replayed
+    by ``graph_time_ms`` as the kernels are (a launch of the least work)."""
+    one = torch.zeros(1, device="cuda")
+    return graph_time_ms(lambda: one.add_(1.0), reps)
+
+
+def launch_info(fns, dtype, feat, rows) -> dict:
+    """The forward launch a library makes over ``rows`` rows (its
+    ``fwd_info``): threads a block, blocks, registers a thread, local-memory
+    bytes a thread, blocks one SM holds, lanes a row, dynamic shared memory
+    a block; and the warps an SM holds."""
+    buf = (ctypes.c_int * 7)()
+    hop_ops.check_launch(fns["fwd_info"](hop_ops.DTYPE_CODES[dtype], 1, feat, rows, buf),
+                         "forward launch info")
+    info = dict(zip(("block", "grid", "registers", "local_bytes", "blocks_per_sm", "lanes",
+                     "smem_bytes"), buf))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["block"] // 32
+    return info
+
+
+def hops_per_step(cfg, spec, band_meta=None) -> collections.Counter:
+    """Hop launches of one model step by ``(kernel, Nd, Ns)``: every
+    processor runs K hops on its scale (the band kernel where the scale has a
+    plan), every level one un-pool hop (ELL, K=1)."""
+    planned = {i for i, m in enumerate(band_meta or ()) if m is not None}
+    counts = collections.Counter()
+    for k, scale in zip(cfg.k_schedule, processor_scales(cfg)):
+        n = spec.node_counts[scale]
+        counts[("band_hop" if scale in planned else "hop", n, n)] += k
+    for lvl in range(cfg.num_scales - 1):
+        counts[("hop", spec.node_counts[lvl], spec.node_counts[lvl + 1])] += cfg.intra_cfg().K
+    return counts
+
+
+def bench_hop_cases(cache, spec, seed=1000, device="cuda") -> list:
+    """The rollout's ELL hops on the bench graph's own tables (the
+    ``prepare_graph`` cache: slot sources and slot masks): the processor hop
+    of every scale (gradient mode) and the two un-pool hops (no-gradient
+    mode), bf16. States are random with 30% dry rows, the flux random with
+    the masked slots zero. -> ``[(shape, (dst, src, tab, s), with_gradient,
+    same_block)]``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def state(n):
+        x = torch.randn(n, FEAT, generator=g)
+        x[torch.rand(n, generator=g) < 0.3] = 0.0
+        return x.to(device, torch.bfloat16)
+
+    def flux(mask):
+        m = (mask.detach().cpu() > 0).float()
+        return (torch.randn(*m.shape, FEAT, generator=g) * m[..., None]).to(device,
+                                                                              torch.bfloat16)
+
+    states = [state(n) for n in spec.node_counts]
+    cases = []
+    for i, (_, mask, srcs, _, _) in enumerate(cache["scales"]):
+        n = spec.node_counts[i]
+        cases.append((f"same-block Nd={n} Ns={n} D={srcs.shape[1]} F={FEAT} bf16 bench table",
+                      (states[i], states[i], srcs.to(device).contiguous(), flux(mask)),
+                      True, True))
+    for lvl, (_, umask, usrc, _) in enumerate(cache["unpools"]):
+        nd, ns = spec.node_counts[lvl], spec.node_counts[lvl + 1]
+        cases.append((f"un-pool Nd={nd} Ns={ns} D={usrc.shape[1]} F={FEAT} bf16 bench table",
+                      (states[lvl], states[lvl + 1], usrc.to(device).contiguous(),
+                       flux(umask)), False, False))
+    return cases
+
+
+def timing_cases(banded, cache, cfg) -> list:
+    """Every kernel at the bench shapes, bf16, as ``phase_timing`` and
+    ``kernel_ab.py`` time them: the ELL forward on the rollout's own tables
+    (``cache``, ``bench_hop_cases``), the ELL backward at the train step's
+    ELL shapes, the band kernels on the bench plans. -> ``[{"kernel",
+    "shape", "key", "run", "plain", "bound_ms", "bound_by", "bytes",
+    "ops"}]``: ``key`` is ``(kernel, Nd, Ns)`` as the wrappers count
+    launches, ``run`` and ``plain`` call the wrapper and the plain version on
+    the same inputs; a forward also has ``launch`` (``launch_info``), a
+    backward ``table_bytes``."""
+    spec = banded.spec
+    train_ell = {(nd, ns) for kernel, nd, ns in hops_per_step(cfg, spec, banded.band_meta)
+                 if kernel == "hop"}
+    cases = []
+
+    def case(kernel, shape, nd, ns, run, plain, work, **extra):
+        ms, by = bound(*work)
+        cases.append(dict(kernel=kernel, shape=shape, key=(kernel, nd, ns), run=run,
+                          plain=plain, bound_ms=ms, bound_by=by, bytes=work[0], ops=work[1],
+                          **extra))
+
+    for name, args, grad, same in bench_hop_cases(cache, spec):
+        nd, ns = args[0].shape[0], args[1].shape[0]
+        case("hop", name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
+             partial(hop_ops.hop_reference, *args, with_gradient=grad),
+             hop_work(nd, ns, DEGREE, FEAT, 2, same, 4 if grad else 3),
+             launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd))
+        if (nd, ns) in train_ell:
+            table = hop_ops.out_slot_table(args[2], ns, slot_mask_of(args[3]))
+            g = upstream(3100 + nd, args[0])
+            case("hop_bwd", name, nd, ns, partial(hop_ops.hop_backward, *args, g, *table, grad),
+                 partial(hop_ops.hop_backward_reference, *args, g, *table, grad),
+                 hop_bwd_work(nd, ns, DEGREE, FEAT, 2, same, grad),
+                 table_bytes=table_bytes(table))
+    for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
+        if plan is None:
+            continue
+        ws, we = meta
+        bp = band_ops.BandPlan(win=plan["win"], idx_rel=plan["idx_rel"], ws=ws, we=we)
+        mask = banded.in_edge_mask[spec.node_slice(i)]
+        state, s, idx_rel, win = band_inputs(2000 + i, bp, mask, FEAT, torch.bfloat16)
+        n = state.shape[0]
+        src = band_ops.band_sources(bp.idx_rel, bp.win, ws, we).cuda()
+        table = hop_ops.out_slot_table(src, n, mask.cuda())
+        g = upstream(2100 + i, state)
+        args, kw = (state, s, idx_rel, win), dict(ws=ws, we=we)
+        shape = f"scale {i} N={n} D={DEGREE} F={FEAT} ws={ws} we={we} bf16 bench plan"
+        nbytes, ops = hop_work(n, n, DEGREE, FEAT, 2, True, 4)
+        case("band_hop", shape, n, n, partial(band_ops.band_hop, *args, **kw),
+             partial(band_ops.band_hop_reference, *args, **kw),
+             (nbytes + win.numel() * 4, ops),
+             launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n))
+        nbytes, ops = hop_bwd_work(n, n, DEGREE, FEAT, 2, True, True)
+        case("band_hop_bwd", shape, n, n,
+             partial(band_ops.band_hop_backward, *args, g, *table, **kw),
+             partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
+             (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table))
+    return cases
+
+
 # ---------------------------------------------------------------- phase 4
-def time_hop_shapes(flush) -> list:
-    """Kernel, kernel with a cold L2, plain version and bound at the shapes
-    the rollout gives the hop (bf16; processor hops in gradient mode, un-pool
-    hops in no-gradient mode)."""
-    shapes = [(n, n, True, True) for n in BENCH_ROWS]
-    shapes += [(f, c, False, False) for f, c in zip(BENCH_ROWS[:-1], BENCH_ROWS[1:])]
-    rows = []
-    for seed, (n_dst, n_src, same, grad) in enumerate(shapes):
-        args = make_hop_inputs(1000 + seed, n_dst, n_src, DEGREE, FEAT, torch.bfloat16, same)
-        row = time_fn(lambda: hop_ops.hop(*args, with_gradient=grad),
-                      lambda: hop_ops.hop_reference(*args, with_gradient=grad), flush)
-        bound_ms, nbytes, ops, bound_by = hop_bound(n_dst, n_src, DEGREE, FEAT, 2, same,
-                                                    4 if grad else 3)
-        kind = "same-block" if same else "un-pool"
-        row.update({"shape": f"{kind} Nd={n_dst} Ns={n_src} D={DEGREE} F={FEAT} bf16",
-                    "n_dst": n_dst, "same_block": same, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bytes": nbytes, "ops": ops})
-        rows.append(row)
-        log_timing("hop", row)
-    return rows
-
-
 @contextlib.contextmanager
 def plain_hops():
     """The model with every hop (forward and backward) through the plain
@@ -458,7 +617,7 @@ def plain_hops():
         yield
 
 
-def phase_serving(sample, mesh, cfg, params, apply_fn, flush) -> dict:
+def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
     from mswe_gnn_tpu_torch.models import count_params, prepare_graph
     from mswe_gnn_tpu_torch.training.rollout import bc_window, inject_bc, rollout
 
@@ -473,19 +632,15 @@ def phase_serving(sample, mesh, cfg, params, apply_fn, flush) -> dict:
         f"parameters; {steps} steps")
     graph = sample.to(device)
     # hop launches a step: K of every processor, plus the K=1 un-pool hop of
-    # every level: 5 x 5 + 2 x 1 = 27 for the bench model
-    per_step = sum(cfg.k_schedule) + (cfg.num_scales - 1) * cfg.intra_cfg().K
-    expected = per_step * steps
+    # every level: 5 x 5 + 2 x 1 = 27 for the bench model, all ELL
+    expected = rollout_launches(cfg, spec, steps)
 
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     preds = rollout(apply_fn, params, cfg, graph, steps, device=device)
     torch.cuda.synchronize()
     counts = read_launches()
-    log(f"[serving] rollout launched {counts} ({per_step} hops a step x {steps} steps "
-        f"= {expected} expected, all through the ELL hop)")
-    if counts != {"hop": expected, "hop_bwd": 0, "band_hop": 0, "band_hop_bwd": 0}:
-        raise AssertionError(f"rollout launches {counts}; expected {expected} ELL hops")
+    hold_launches("serving", f"the {steps}-step rollout", counts, expected)
     if tuple(preds.shape) != (spec.num_nodes, 2, steps):
         raise AssertionError(f"rollout shape {tuple(preds.shape)}")
     if not bool(torch.isfinite(preds).all()) or bool((preds < 0).any()):
@@ -533,19 +688,9 @@ def phase_serving(sample, mesh, cfg, params, apply_fn, flush) -> dict:
         f"(CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
         f"{', '.join(f'{t:.1f}' for t in host_ms)} ms)")
 
-    shapes = time_hop_shapes(flush)
-    by_rows = {r["n_dst"]: r for r in shapes if r["same_block"]}
-    unpool = [r for r in shapes if not r["same_block"]]
-    # hop device time of one step from the per-shape kernel times: each
-    # processor on scale s runs K hops, each level one un-pool hop
-    scales = processor_scales(cfg)
-    hop_step_ms = (sum(k * by_rows[spec.node_counts[s]]["ms"]
-                       for k, s in zip(cfg.k_schedule, scales))
-                   + sum(r["ms"] for r in unpool))
-    log(f"[serving] hop kernel time in one step (from the shape timings): "
-        f"{hop_step_ms * 1e3:.1f} us; in the rollout {hop_step_ms * steps:.2f} ms "
-        f"= {100 * hop_step_ms * steps / rollout_ms:.1f}% of its {rollout_ms:.1f} ms")
-    return {"launches": counts, "rollout_ms": rollout_ms, "shapes": shapes}
+    with torch.no_grad():            # the rollout's tables, for the kernel timings
+        cache = prepare_graph(params, cfg, graph).ell_cache
+    return {"launches": counts, "rollout_ms": rollout_ms, "cache": cache}
 
 
 def processor_scales(cfg):
@@ -555,27 +700,58 @@ def processor_scales(cfg):
 
 
 # ---------------------------------------------------------------- phase 5
-def expected_train_launches(cfg, band_meta, steps, remat):
-    """Launches of every kernel in one train step, from the config: each
-    processor runs K hops on its scale (banded where the scale has a plan),
-    each level one un-pool hop (ELL, K=1); the unroll takes ``steps`` model
-    steps, each hop runs one backward, and remat runs every forward twice."""
-    planned = {i for i, m in enumerate(band_meta) if m is not None}
-    band = sum(k for k, s in zip(cfg.k_schedule, processor_scales(cfg)) if s in planned)
-    ell = sum(cfg.k_schedule) - band + (cfg.num_scales - 1) * cfg.intra_cfg().K
-    fwd = 2 if remat else 1
-    return {"band_hop": fwd * band * steps, "band_hop_bwd": band * steps,
-            "hop": fwd * ell * steps, "hop_bwd": ell * steps}
+KERNELS = ("hop", "hop_bwd", "band_hop", "band_hop_bwd")
 
 
-def read_launches():
-    return {"hop": hop_ops.launches, "hop_bwd": hop_ops.bwd_launches,
-            "band_hop": band_ops.launches, "band_hop_bwd": band_ops.bwd_launches}
+def rollout_launches(cfg, spec, steps) -> collections.Counter:
+    """Launches by ``(kernel, Nd, Ns)`` of a ``steps``-step rollout, from
+    the config (``hops_per_step``, no band plan): forwards only."""
+    return collections.Counter({key: n * steps for key, n in hops_per_step(cfg, spec).items()})
+
+
+def train_launches(cfg, spec, band_meta, steps, remat) -> collections.Counter:
+    """Launches by ``(kernel, Nd, Ns)`` of one train step, from the config
+    (``hops_per_step``): the unroll takes ``steps`` model steps, each hop
+    runs one backward, and remat runs every forward twice."""
+    out = collections.Counter()
+    for (kernel, nd, ns), n in hops_per_step(cfg, spec, band_meta).items():
+        out[kernel, nd, ns] += (2 if remat else 1) * n * steps
+        out[kernel + "_bwd", nd, ns] += n * steps
+    return out
+
+
+def by_kernel(counts) -> dict:
+    """Launches by ``(kernel, Nd, Ns)`` -> by kernel."""
+    out = dict.fromkeys(KERNELS, 0)
+    for (kernel, _, _), n in counts.items():
+        out[kernel] += n
+    return out
+
+
+def read_launches() -> collections.Counter:
+    """The launches the wrappers counted by ``(kernel, Nd, Ns)`` since
+    ``reset_all_launches``, checked against their totals by kernel."""
+    counts = hop_ops.launches_by_shape + band_ops.launches_by_shape
+    totals = {"hop": hop_ops.launches, "hop_bwd": hop_ops.bwd_launches,
+              "band_hop": band_ops.launches, "band_hop_bwd": band_ops.bwd_launches}
+    if by_kernel(counts) != totals:
+        raise AssertionError(f"launches by shape {dict(counts)} do not sum to {totals}")
+    return counts
 
 
 def reset_all_launches():
     hop_ops.reset_launches()
     band_ops.reset_launches()
+
+
+def hold_launches(phase, what, counts, expected) -> None:
+    """Logs the counted launches by kernel and by shape; raises unless each
+    is the one the config gives."""
+    log(f"[{phase}] {what} launched {by_kernel(counts)}; by (kernel, Nd, Ns): "
+        + ", ".join(f"{k}: {n}" for k, n in sorted(counts.items())))
+    if counts != expected:
+        raise AssertionError(f"{what}: launches {dict(counts)}, expected {dict(expected)}")
+    log(f"[{phase}] every count as the config gives (hops_per_step)")
 
 
 def flat(tree):
@@ -605,8 +781,8 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
     device = torch.device("cuda")
     log(f"[train] band_meta {banded.band_meta}")
     step = build_bench_train_step(banded, cfg, params, apply_fn, device=device)
-    expected = expected_train_launches(cfg, banded.band_meta, step.rollout_steps,
-                                       step.opts.remat)
+    expected = train_launches(cfg, banded.spec, banded.band_meta, step.rollout_steps,
+                              step.opts.remat)
 
     # the gradients of the first step, through the kernels and through the
     # plain hops (autograd of the plain versions)
@@ -670,10 +846,8 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
         losses.append(float(loss))
         if i == 0:
             launches = read_launches()
-            log(f"[train] one train step launched {launches}; expected {expected} "
-                f"(remat={step.opts.remat})")
-            if launches != expected:
-                raise AssertionError(f"train-step launches {launches} != {expected}")
+            hold_launches("train", f"one train step (remat={step.opts.remat})", launches,
+                          expected)
         else:
             event_ms.append(start.elapsed_time(end))
             host_ms.append((time.perf_counter() - h0) * 1e3)
@@ -701,59 +875,38 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_timing(banded, flush) -> dict:
-    """The new kernels at the bench shapes, bf16, gradient mode for the
-    processors and no-gradient mode for the un-pool hops."""
-    rows = {"band_hop": [], "band_hop_bwd": [], "hop_bwd": []}
-    for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
-        if plan is None:
-            continue
-        ws, we = meta
-        nsl = banded.spec.node_slice(i)
-        bp = band_ops.BandPlan(win=plan["win"], idx_rel=plan["idx_rel"], ws=ws, we=we)
-        mask = banded.in_edge_mask[nsl]
-        state, s, idx_rel, win = band_inputs(2000 + i, bp, mask, FEAT, torch.bfloat16)
-        n = state.shape[0]
-        src = band_ops.band_sources(bp.idx_rel, bp.win, ws, we).cuda()
-        table = hop_ops.out_slot_table(src, n, mask.cuda())
-        g = upstream(2100 + i, state)
-        kw = dict(ws=ws, we=we)
-        row = time_fn(lambda: band_ops.band_hop(state, s, idx_rel, win, **kw),
-                      lambda: band_ops.band_hop_reference(state, s, idx_rel, win, **kw), flush)
-        ms, nbytes, ops, by = hop_bound(n, n, DEGREE, FEAT, 2, True, 4)
-        nbytes += win.numel() * 4
-        ms, by = bound(nbytes, ops)
-        shape = f"scale {i} N={n} D={DEGREE} F={FEAT} ws={ws} we={we} bf16"
-        row.update(shape=shape, bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops)
-        rows["band_hop"].append(row)
-        log_timing("band_hop", row)
-        row = time_fn(lambda: band_ops.band_hop_backward(state, s, idx_rel, win, g, *table,
-                                                         **kw),
-                      lambda: band_ops.band_hop_backward_reference(state, s, idx_rel, win, g,
-                                                                   *table, **kw), flush)
-        ms, nbytes, ops, by = hop_bwd_bound(n, n, DEGREE, FEAT, 2, True, True)
-        nbytes += win.numel() * 4
-        ms, by = bound(nbytes, ops)
-        row.update(shape=shape, bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
-                   table_bytes=table_bytes(table))
-        rows["band_hop_bwd"].append(row)
-        log_timing("band_hop_bwd", row)
-    # ELL backward: the coarsest scale's processor hops and the un-pool hops
-    shapes = [(f, c, False, False) for f, c in zip(BENCH_ROWS[:-1], BENCH_ROWS[1:])]
-    shapes += [(BENCH_ROWS[2], BENCH_ROWS[2], True, True)]
-    for seed, (n_dst, n_src, same, grad) in enumerate(shapes):
-        args = make_hop_inputs(3000 + seed, n_dst, n_src, DEGREE, FEAT, torch.bfloat16, same)
-        table = hop_ops.out_slot_table(args[2], n_src, slot_mask_of(args[3]))
-        g = upstream(3100 + seed, args[0])
-        row = time_fn(lambda: hop_ops.hop_backward(*args, g, *table, grad),
-                      lambda: hop_ops.hop_backward_reference(*args, g, *table, grad), flush)
-        ms, nbytes, ops, by = hop_bwd_bound(n_dst, n_src, DEGREE, FEAT, 2, same, grad)
-        kind = "same-block" if same else "un-pool"
-        row.update(shape=f"{kind} Nd={n_dst} Ns={n_src} D={DEGREE} F={FEAT} bf16",
-                   bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops,
-                   table_bytes=table_bytes(table))
-        rows["hop_bwd"].append(row)
-        log_timing("hop_bwd", row)
+def phase_timing(cases, flush, serving, train) -> dict:
+    """Times every case of ``timing_cases`` (kernel, L2 flushed, plain
+    version), with the launch floor before and after. Each row carries the
+    launches of its shape on each path, as the wrappers counted them in the
+    rollout (``serving``) and the train step (``train``), and each kernel's
+    sum of launches x time on each path."""
+    floors = [launch_floor_ms()]
+    rows = {kernel: [] for kernel in KERNELS}
+    for c in cases:
+        row = time_fn(c["run"], c["plain"], flush)
+        row.update({k: v for k, v in c.items() if k not in ("run", "plain", "key")},
+                   n_dst=c["key"][1], n_src=c["key"][2],
+                   launches={"serving": serving[c["key"]], "train_step": train[c["key"]]})
+        rows[c["kernel"]].append(row)
+    floors.append(launch_floor_ms())
+    floor_ms = statistics.median(floors)
+    log(f"[timing] launch floor (a one-element add, replayed in a CUDA graph as the kernels "
+        f"are): {', '.join(f'{f * 1e3:.2f}' for f in floors)} us")
+    for kernel, krows in rows.items():
+        for row in krows:
+            row["floor_ms"] = floor_ms
+            log_timing(kernel, row)
+    for kernel, krows in rows.items():
+        for path in ("serving", "train_step"):
+            n = sum(r["launches"][path] for r in krows)
+            if n == 0:
+                continue
+            busy = sum(r["launches"][path] * r["ms"] for r in krows)
+            gap = sum(r["launches"][path] * (r["ms"] - r["bound_ms"]) for r in krows)
+            log(f"[timing] {kernel} on the {path}: {n} launches counted at these shapes, "
+                f"{busy:.3f} ms of kernel time (sum of launches x time), {gap:.3f} ms over "
+                f"the bound")
     return rows
 
 
@@ -781,30 +934,29 @@ def main() -> None:
     checks = phase_kernels(banded)
     cfg, params, apply_fn = build_bench_model(sample, device=torch.device("cuda"))
     flush = torch.empty(24 * 2 ** 20, dtype=torch.int32, device="cuda")   # 96 MB > L2
-    serving = phase_serving(sample, mesh, cfg, params, apply_fn, flush)
+    serving = phase_serving(sample, mesh, cfg, params, apply_fn)
     train = phase_train(banded, cfg, params, apply_fn)
-    timing = phase_timing(banded, flush)
+    timing = phase_timing(timing_cases(banded, serving["cache"], cfg), flush,
+                          serving["launches"], train["launches"])
     # launches: the count of the train step (this slice's path); every
     # kernel also lists the serving rollout's count
-    by_path = {name: {"serving": serving["launches"][name],
-                      "train_step": train["launches"][name]} for name in train["launches"]}
+    serving_n, train_n = by_kernel(serving["launches"]), by_kernel(train["launches"])
     kernels = [
         kernel_entry("hop", SOURCES["hop"], "mswe_gnn_tpu/ops/pallas_hop.py:54",
-                     train["launches"]["hop"], checks.max_err("hop"), serving["shapes"]),
+                     train_n["hop"], checks.max_err("hop"), timing["hop"]),
         kernel_entry("hop_bwd", SOURCES["hop"],
                      "none: the port's own backward of the ELL hop (XLA autodiff of "
                      "mswe_gnn_tpu/models/swegnn.py:447-471 in the JAX package)",
-                     train["launches"]["hop_bwd"], checks.max_err("hop_bwd"),
-                     timing["hop_bwd"]),
+                     train_n["hop_bwd"], checks.max_err("hop_bwd"), timing["hop_bwd"]),
         kernel_entry("band_hop", SOURCES["band_hop"], "mswe_gnn_tpu/ops/band_hop.py:178",
-                     train["launches"]["band_hop"], checks.max_err("band_hop"),
-                     timing["band_hop"]),
+                     train_n["band_hop"], checks.max_err("band_hop"), timing["band_hop"]),
         kernel_entry("band_hop_bwd", SOURCES["band_hop"],
-                     "mswe_gnn_tpu/ops/band_hop.py:255", train["launches"]["band_hop_bwd"],
+                     "mswe_gnn_tpu/ops/band_hop.py:255", train_n["band_hop_bwd"],
                      checks.max_err("band_hop_bwd"), timing["band_hop_bwd"]),
     ]
     for k in kernels:
-        k["launches_by_path"] = by_path[k["name"]]
+        k["launches_by_path"] = {"serving": serving_n[k["name"]],
+                                 "train_step": train_n[k["name"]]}
     kernels[0]["rollout_ms"] = serving["rollout_ms"]
     for k in kernels[1:]:
         k["train_step_ms"] = train["step_ms"]

@@ -30,6 +30,7 @@ dtype (``band_hop.py:212-219``), so in bf16 the two differ by rounding.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import threading
@@ -49,6 +50,8 @@ _MAX_DEGREE = 16         # slot widths the kernels take by value
 
 launches = 0             # forward kernel launches; reset with reset_launches()
 bwd_launches = 0         # backward kernel launches
+# the same launches by ("band_hop" or "band_hop_bwd", N, N)
+launches_by_shape: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -57,6 +60,7 @@ _fns: dict = {}
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = bwd_launches = 0
+    launches_by_shape.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +190,8 @@ def band_sources(idx_rel: torch.Tensor, win: torch.Tensor, ws, we: int) -> torch
 
 
 def _kernels() -> dict:
+    """The library's launch functions, typed for ctypes (as in
+    ``ops/hop.py``)."""
     with _lock:
         if not _fns:
             lib = kernel_build.load("band_hop")
@@ -196,7 +202,10 @@ def _kernels() -> dict:
             bwd = lib.mswe_band_hop_bwd_launch
             bwd.argtypes = head + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             bwd.restype = ctypes.c_int
-            _fns.update(fwd=fwd, bwd=bwd)
+            info = lib.mswe_band_hop_fwd_info
+            info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+            info.restype = ctypes.c_int
+            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info)
         return _fns
 
 
@@ -296,6 +305,7 @@ def _band_forward(state, s_tab, idx_rel, win, ws, we, with_gradient, upwind):
             DTYPE_CODES[state.dtype], vectorized, int(with_gradient), int(upwind), stream)
     check_launch(rc, "band hop")
     launches += 1
+    launches_by_shape["band_hop", n, n] += 1
     return agg
 
 
@@ -345,6 +355,7 @@ def band_hop_backward(state: torch.Tensor, s_tab: torch.Tensor, idx_rel: torch.T
             DTYPE_CODES[state.dtype], vectorized, int(with_gradient), int(upwind), stream)
     check_launch(rc, "band hop backward")
     bwd_launches += 1
+    launches_by_shape["band_hop_bwd", n, n] += 1
     return gstate, gs
 
 

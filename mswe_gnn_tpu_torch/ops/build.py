@@ -5,7 +5,9 @@ Each library is one ``csrc/<name>.cu`` source (plus the shared header
 sm_90a into ``BUILD_DIR`` (listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is rebuilt when its source, the header or the flags
 change (the file name carries their hash). ``build`` starts one ``nvcc`` a
-source, all at once, and waits for them together.
+source, all at once, and waits for them together. Given another source
+directory (another checkout's ``csrc/``), it builds that version beside the
+shipped one, for comparisons on the card (``kernel_ab.py``).
 
 Nothing is built or loaded at import: the machine without a GPU has no
 ``nvcc``, and the tests import every module.
@@ -33,10 +35,10 @@ _lock = threading.Lock()
 _loaded: dict = {}
 
 
-def source(name: str) -> Path:
+def source(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
     if name not in LIBRARIES:
         raise ValueError(f"unknown kernel library {name!r}; options: {LIBRARIES}")
-    return CSRC_DIR / f"{name}.cu"
+    return Path(csrc_dir) / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -50,31 +52,36 @@ def _nvcc() -> str:
                        f"{CSRC_DIR.name}/ on the machine that has the GPU")
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes())
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    digest = hashlib.sha256(source(name, csrc_dir).read_bytes())
     for header in HEADERS:
-        digest.update((CSRC_DIR / header).read_bytes())
+        digest.update((Path(csrc_dir) / header).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> dict:
+def build(*names: str, csrc_dir: Path = CSRC_DIR) -> dict:
     """Compile the named libraries (default: all), one ``nvcc`` each, in
-    parallel. Returns ``{name: {"path", "seconds", "log"}}``; ``log`` holds
-    the compiler's output (``-Xptxas -v``: registers and spills of every
-    instantiation). Raises if any build fails."""
+    parallel, from ``csrc_dir``. Returns ``{name:
+    {"path", "seconds", "log"}}``; ``log`` holds the compiler's output
+    (``-Xptxas -v``: registers, stack frame and spills of every
+    instantiation), kept beside the library for a later call. Raises if
+    any build fails."""
     names = names or LIBRARIES
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running, out = {}, {}
     try:
         for name in names:
-            lib = library_path(name)
+            lib = library_path(name, csrc_dir)
             if lib.exists():
-                out[name] = {"path": str(lib), "seconds": 0.0, "log": "already built"}
+                log_file = lib.with_suffix(".log")
+                out[name] = {"path": str(lib), "seconds": 0.0,
+                             "log": log_file.read_text() if log_file.exists() else ""}
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(name))],
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                     str(source(name, csrc_dir))],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             running[name] = (proc, tmp, lib, time.perf_counter())
@@ -84,6 +91,7 @@ def build(*names: str) -> dict:
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exit code {proc.returncode}\n{log}")
                 continue
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)      # atomic: a concurrent build never sees half a file
             out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
         if failed:

@@ -16,11 +16,18 @@
 // (the slots that read each row), as in hop.cu. Only the addressing is
 // kept.
 //
-// What bounds them on an H100: bytes, as for hop.cu. At the finest bench
-// scale in bf16 (N = 23168, D = 4, F = 64) the forward moves about 18 MB
-// (5.4 us at 3.35 TB/s) and the backward about 33 MB (10 us); the plan's
-// tables (idx_rel 0.37 MB, win 3 KB) replace the ELL source table byte for
-// byte.
+// The least time on an H100 is set by bytes, as for hop.cu. At the finest
+// bench scale in bf16 (N = 23168, D = 4, F = 64) the forward moves about
+// 18 MB (5.4 us at 3.35 TB/s) and the backward about 33 MB (10 us); the
+// plan's tables (idx_rel 0.37 MB, win 3 KB) replace the ELL source table
+// byte for byte. The forward's time is set as in hop.cu, and the decode
+// used to add to its chain: the window start was loaded only after idx_rel
+// had arrived, and the slot widths, indexed by a runtime slot, were read
+// from a copy of the parameters in local memory. The forward
+// (hop_common.cuh) loads idx_rel and win together and walks the slots with
+// compile-time numbers, so that ws[d] is a parameter at a constant offset
+// (no stack frame); the rest is the ELL forward's design. The backward
+// still decodes each slot with a runtime number (a 96-byte stack frame).
 
 #include "hop_common.cuh"
 
@@ -51,6 +58,11 @@ extern "C" int mswe_band_hop_launch(const void* state, const void* idx_rel, cons
   if (rc != 0) return rc;
   return mswe::fwd_any(dtype, vectorized, state, state, addr, s_tab, agg, n, n, feat, degree,
                        with_gradient, upwind, static_cast<cudaStream_t>(stream));
+}
+
+// The forward's launch over n rows (info[7]: see mswe::info_fwd).
+extern "C" int mswe_band_hop_fwd_info(int dtype, int vectorized, int feat, int n, int* info) {
+  return mswe::fwd_info_any<mswe::BandAddr>(dtype, vectorized, feat, n, info);
 }
 
 // gstate: the state gradient (diagonal terms plus the gathered scatter).

@@ -12,16 +12,25 @@
 // for the hops the band plan does not take (the coarsest scale and the
 // un-pool hops, which read a separate source block).
 //
-// What bounds them on an H100: bytes. At the finest bench scale in bf16
-// (Nd = 23168, D = 4, F = 64) the forward reads 11.9 MB of flux, 3.0 MB of
-// state and 0.37 MB of indices and writes 3.0 MB: about 18 MB, 5.4 us at
-// 3.35 TB/s, against some 0.03 GFLOP of float32 arithmetic. The backward
-// reads state, flux, the upstream gradient and the two index tables and
-// writes the flux gradient and the state gradient: about 33 MB, 10 us. Its
-// design reads the flux twice (once by the row that owns the slot, once by
-// the row the slot reads) and the state and gradient rows of the reading
-// slots once more, mostly from the 50 MB L2; that is the price of a gather
-// without atomics, and what keeps the result deterministic.
+// The least time on an H100 is set by bytes. At the finest bench scale in
+// bf16 (Nd = 23168, D = 4, F = 64) the forward reads 11.9 MB of flux, 3.0 MB
+// of state and 0.37 MB of indices and writes 3.0 MB: about 18 MB, 5.4 us at
+// 3.35 TB/s, against some 0.03 GFLOP of float32 arithmetic. What its time is
+// set by is the chain of dependent loads of a row at the coarse scales (the
+// whole grid resident at once) and, at the finest, how many rows an SM keeps
+// in flight. The forward (hop_common.cuh) loads a row's slots together,
+// which cuts the chain from about nine round trips to two, stages those
+// loads in shared memory so that they do not cost the registers that set
+// the warps an SM keeps, and picks smaller blocks at the coarse scales so
+// that their rows spread over all 132 SMs.
+//
+// The backward reads state, flux, the upstream gradient and the two index
+// tables and writes the flux gradient and the state gradient: about 33 MB,
+// 10 us. Its design reads the flux twice (once by the row that owns the
+// slot, once by the row the slot reads) and the state and gradient rows of
+// the reading slots once more, mostly from the 50 MB L2; that is the price
+// of a gather without atomics, and what keeps the result deterministic. It
+// still walks its slots and its reading slots one at a time.
 
 #include "hop_common.cuh"
 
@@ -35,6 +44,11 @@ extern "C" int mswe_hop_launch(const void* dst_state, const void* src_state,
   return mswe::fwd_any(dtype, vectorized, dst_state, src_state, addr, s_tab, agg, n_dst,
                        n_src, feat, degree, with_gradient, upwind,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The forward's launch over n_rows rows (info[7]: see mswe::info_fwd).
+extern "C" int mswe_hop_fwd_info(int dtype, int vectorized, int feat, int n_rows, int* info) {
+  return mswe::fwd_info_any<mswe::EllAddr>(dtype, vectorized, feat, n_rows, info);
 }
 
 // g_dst may be null (no gradient mode, or a same-block hop, whose state

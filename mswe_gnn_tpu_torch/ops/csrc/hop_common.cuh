@@ -36,6 +36,34 @@
 // different branches and loop counts (the backward's reading-slot lists
 // differ in length from row to row), and a whole group leaves together.
 //
+// What bounds the forward on an H100. Its least time is set by bytes (18 MB
+// at the finest bench scale in bf16: 5.4 us at 3.35 TB/s), but a slot loop
+// that walks the slots one by one (index, then source row, then its row
+// sum, then the flux) makes each group wait on about nine dependent round
+// trips, and at the coarse scales, whose grids are resident at once, the
+// kernel lasts that chain. So the forward works in batches of B slots (4 at
+// one chunk a lane, fewer for wider rows): it issues the batch's table
+// entries, the flux rows (which depend on no entry) and, once the entries
+// are in, all of the batch's source rows, before it uses any of them; the
+// destination row is issued first of all and reduced while the source rows
+// are in flight. The chain is two round trips a batch.
+//
+// Loads in flight must be held somewhere, and at the finest scale, where
+// the grid takes several waves, what they hold caps the warps an SM keeps
+// and with them the rate at which rows go through. Held in registers, a
+// batch took 106 of them and left 16 warps an SM, slower there than the
+// slot loop at 40. So 16-byte chunks are copied into shared memory with
+// cp.async (SmemStage): 36 KB a 256-thread block, 63 registers, 32 warps an
+// SM. Narrower chunks, which cp.async cannot copy one to an element, stay
+// in registers (RegStage). Each lane reads back only its own copies.
+//
+// The band plan's slots are walked with compile-time slot numbers
+// (kMaxDegree bounds them), so its widths are read from the kernel
+// parameters at constant offsets (no stack frame), and its window start is
+// loaded beside idx_rel instead of after it. The block size is chosen from
+// the row count (fwd_block), so that a coarse scale's few rows spread over
+// every SM.
+//
 // The scatter of the backward: the TPU kernel carries an [N, F] accumulator
 // across its sequential grid; Hopper's blocks run in no order. So the
 // scatter is turned into a gather over a transposed table (CSR of the slots
@@ -50,11 +78,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mswe {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 128;         // band plan: destination rows a window serves
 constexpr int kMaxDegree = 16;     // band plan: slot widths passed by value
+constexpr int kFwdSlots = 4;       // forward: slots a batch loads at one chunk a lane
+// forward: blocks of 256 threads an SM must hold at one chunk a lane
+// (__launch_bounds__, which caps the registers: 4 gives 63-64 and 32 warps
+// an SM; 5 and 6 spill)
+constexpr int kFwdMinBlocks = 4;
+constexpr int kFwdMinThreads = 64; // forward: the smallest block fwd_block chooses
 
 __device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -64,26 +100,46 @@ __device__ __forceinline__ uint32_t f32_to_bf16_bits(float x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
 }
 
-// ---- loads of V consecutive elements into float32 registers
-__device__ __forceinline__ void load(const float* p, float (&x)[1]) { x[0] = __ldg(p); }
+// ---- a chunk of V consecutive elements as it lies in memory (fetch), and
+// widened to float32 registers (widen); load does both at once.
+template <typename T, int V> struct Chunk;
+template <> struct Chunk<float, 1> { using type = float; };
+template <> struct Chunk<float, 4> { using type = float4; };
+template <> struct Chunk<__nv_bfloat16, 1> { using type = unsigned short; };
+template <> struct Chunk<__nv_bfloat16, 8> { using type = uint4; };
 
-__device__ __forceinline__ void load(const float* p, float (&x)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+__device__ __forceinline__ void fetch(const float* p, float& r) { r = __ldg(p); }
+__device__ __forceinline__ void fetch(const float* p, float4& r) {
+  r = __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void fetch(const __nv_bfloat16* p, unsigned short& r) {
+  r = __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ void fetch(const __nv_bfloat16* p, uint4& r) {
+  r = __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&x)[1]) {
-  x[0] = bf16_bits_to_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
+__device__ __forceinline__ void widen(float r, float (&x)[1]) { x[0] = r; }
+__device__ __forceinline__ void widen(const float4& r, float (&x)[4]) {
+  x[0] = r.x; x[1] = r.y; x[2] = r.z; x[3] = r.w;
 }
-
-__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void widen(unsigned short r, float (&x)[1]) {
+  x[0] = bf16_bits_to_f32(r);
+}
+__device__ __forceinline__ void widen(const uint4& r, float (&x)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {        // little endian: element 2i is the low half
     x[2 * i] = bf16_bits_to_f32(w[i] & 0xffffu);
     x[2 * i + 1] = bf16_bits_to_f32(w[i] >> 16);
   }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load(const T* p, float (&x)[V]) {
+  typename Chunk<T, V>::type r;
+  fetch(p, r);
+  widen(r, x);
 }
 
 // ---- stores, with one rounding to the storage type
@@ -136,6 +192,20 @@ __device__ __forceinline__ void load_chunk(const T* row_ptr, int c, int nchunk,
   for (int i = 0; i < V; ++i) part += x[i];
 }
 
+// A fetched chunk of a source row, widened: NaN where the slot's index was
+// outside the source, zeros past the row's last chunk.
+template <typename Raw, int V>
+__device__ __forceinline__ void source_chunk(const Raw& raw, bool real, bool in_range,
+                                             float (&x)[V]) {
+  if (real && in_range) {
+    widen(raw, x);
+  } else {
+    const float fill = real ? __int_as_float(0x7fc00000) : 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = fill;
+  }
+}
+
 // Loads the source row a slot reads: NaN where the index is outside the
 // source, zeros past the row's last chunk.
 template <typename T, int V, int CPL>
@@ -160,12 +230,22 @@ __device__ __forceinline__ float load_source(const T* src_state, int64_t s, int 
   return part;
 }
 
-// ---- addressing policies
+// ---- addressing policies. operator() gives a slot's source row at once
+// (the backward); the forward splits it into fetch, the slot's table entries
+// loaded as they lie, and resolve, the source row from them, so that the
+// loads of a batch are issued before any of them is waited for.
 
-// ELL: slot sources are an [Nd, D] int32 table of source rows.
+// ELL: slot sources are an [Nd, D] int32 table of source rows. Slot numbers
+// may be runtime values: nothing is indexed by them.
 struct EllAddr {
+  static constexpr bool kStaticSlots = false;
   const int32_t* src_tab;
   int degree;
+  struct Raw { int32_t src; };
+  __device__ __forceinline__ Raw fetch(int64_t row, int d) const {
+    return {__ldg(src_tab + row * degree + d)};
+  }
+  __device__ __forceinline__ int64_t resolve(const Raw& r, int) const { return r.src; }
   __device__ __forceinline__ int64_t operator()(int64_t row, int d) const {
     return __ldg(src_tab + row * degree + d);
   }
@@ -173,14 +253,26 @@ struct EllAddr {
 
 // Band plan (mswe_gnn_tpu/ops/band_hop.py::BandPlan): slot d of row n reads
 // win[n / 128, d] + rel when rel = idx_rel[n, d] < ws[d], else the ghost tail
-// row n_rows - we + (rel - ws[d]).
+// row n_rows - we + (rel - ws[d]). The forward takes slot numbers known at
+// compile time (kStaticSlots), so that ws[d] is a parameter at a constant
+// offset and not a copy of ws in local memory.
 struct BandAddr {
+  static constexpr bool kStaticSlots = true;
   const int32_t* idx_rel;
   const int32_t* win;
   int degree;
   int n_rows;
   int we;
   int ws[kMaxDegree];
+  struct Raw { int32_t rel, start; };
+  __device__ __forceinline__ Raw fetch(int64_t row, int d) const {
+    return {__ldg(idx_rel + row * degree + d), __ldg(win + (row / kTile) * degree + d)};
+  }
+  __device__ __forceinline__ int64_t resolve(const Raw& r, int d) const {
+    const int w = ws[d];
+    if (r.rel < w) return static_cast<int64_t>(r.start) + r.rel;
+    return static_cast<int64_t>(n_rows) - we + (r.rel - w);
+  }
   __device__ __forceinline__ int64_t operator()(int64_t row, int d) const {
     const int rel = __ldg(idx_rel + row * degree + d);
     const int w = ws[d];
@@ -189,12 +281,96 @@ struct BandAddr {
   }
 };
 
-// ---- forward: CPL chunks of V elements a lane (F <= 32 * CPL * V)
+// A slot number known at compile time, usable as an int.
+template <int N>
+struct Slot {
+  __host__ __device__ constexpr operator int() const { return N; }
+};
+
+// Calls f(Slot<d0>) for d0 = First, First + Step, ... while d0 < min(Limit,
+// degree).
+template <int First, int Step, int Limit, typename F>
+__device__ __forceinline__ void static_steps(int degree, F&& f) {
+  if constexpr (First < Limit) {
+    if (First < degree) {
+      f(Slot<First>{});
+      static_steps<First + Step, Step, Limit>(degree, f);
+    }
+  }
+}
+
+// Slots a forward batch loads together: kFwdSlots at one chunk a lane,
+// fewer for wider rows, so that a lane holds the same bytes in flight.
+__host__ __device__ constexpr int fwd_batch(int cpl) {
+  return kFwdSlots / cpl > 1 ? kFwdSlots / cpl : 1;
+}
+__host__ __device__ constexpr int fwd_min_blocks(int cpl) {
+  return cpl == 1 ? kFwdMinBlocks : 1;
+}
+// Chunks a lane stages: its destination row, then B slots' flux and source
+// rows.
+__host__ __device__ constexpr int fwd_stage_chunks(int cpl) {
+  return cpl + 2 * fwd_batch(cpl) * cpl;
+}
+
+// ---- where the forward's loads land. Chunk k of a lane: k < CPL its
+// destination row, then the batch's flux rows, then its source rows.
+//
+// SmemStage (16-byte chunks): cp.async copies into the block's dynamic
+// shared memory, one column a thread (chunk k of thread t at k * blockDim + t,
+// so a warp's accesses fall on consecutive 16-byte words). Loads in flight
+// hold no registers. Each lane waits for its own copies only
+// (cp.async.wait_group makes them visible to the thread that issued them),
+// so no barrier is needed; a later batch overwrites a chunk only after the
+// lane has used it. Flux rows, read once, are cached in L2 only (.cg); state
+// rows, which the neighbouring rows of a block read again, in L1 as well
+// (.ca).
+template <typename Raw>
+struct SmemStage {
+  Raw* col;
+  int stride;
+  template <bool kStream, typename T>
+  __device__ __forceinline__ void put(int k, const T* p) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(col + k * stride));
+    if constexpr (kStream)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(p) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(p) : "memory");
+  }
+  __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+  // all but the newest group have landed / everything has landed
+  __device__ __forceinline__ void wait_older() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+  __device__ __forceinline__ void wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+  __device__ __forceinline__ Raw get(int k) const { return col[k * stride]; }
+};
+
+// RegStage (narrower chunks, which cp.async cannot copy one to an element):
+// loads into registers; a load is waited for where its value is used.
+template <typename Raw, int N>
+struct RegStage {
+  Raw r[N];
+  template <bool kStream, typename T>
+  __device__ __forceinline__ void put(int k, const T* p) { fetch(p, r[k]); }
+  __device__ __forceinline__ void commit() {}
+  __device__ __forceinline__ void wait_older() {}
+  __device__ __forceinline__ void wait_all() {}
+  __device__ __forceinline__ const Raw& get(int k) const { return r[k]; }
+};
+
+template <typename T, int V>
+constexpr bool kStaged = sizeof(typename Chunk<T, V>::type) == 16;
+
+// ---- forward: CPL chunks of V elements a lane (F <= 32 * CPL * V), slots in
+// batches of B (see the header comment). The arithmetic is the slot loop's:
+// terms added to a float32 accumulator in slot order.
 template <typename T, int V, int CPL, typename Addr>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(CPL))
 hop_fwd_kernel(const T* __restrict__ dst_state, const T* __restrict__ src_state, Addr addr,
                const T* __restrict__ s_tab, T* __restrict__ agg, int n_dst, int n_src,
                int feat, int degree, int group, int with_gradient, int upwind) {
+  using Raw = typename Chunk<T, V>::type;
+  constexpr int B = fwd_batch(CPL);
+  constexpr int kFlux = CPL, kSrc = CPL + B * CPL;     // first flux / source chunk
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t row = tid / group;
   if (row >= n_dst) return;                     // the whole group leaves
@@ -202,42 +378,135 @@ hop_fwd_kernel(const T* __restrict__ dst_state, const T* __restrict__ src_state,
   const unsigned gmask = group_mask(group);
   const int nchunk = feat / V;
 
-  float o[CPL][V];
-  float part = 0.f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) load_chunk<T, V>(dst_state + row * feat, j * group + lane, nchunk, o[j], part);
-  const bool dst_act = group_sum(part, group, gmask) != 0.f;
+  extern __shared__ uint4 stage_smem[];
+  using Stage = std::conditional_t<kStaged<T, V>, SmemStage<Raw>,
+                                   RegStage<Raw, fwd_stage_chunks(CPL)>>;
+  Stage st;
+  if constexpr (kStaged<T, V>) {
+    st.col = reinterpret_cast<Raw*>(stage_smem) + threadIdx.x;
+    st.stride = blockDim.x;
+  }
 
-  float acc[CPL][V];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {               // the destination row, issued first
+    const int c = j * group + lane;
+    if (c < nchunk) st.template put<false>(j, dst_state + row * feat + c * V);
+  }
+
+  float o[CPL][V], acc[CPL][V];
 #pragma unroll
   for (int j = 0; j < CPL; ++j)
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
+  bool dst_act = false;
 
-  for (int d = 0; d < degree; ++d) {
-    const int64_t slot = row * degree + d;
-    float nb[CPL][V];
-    part = load_source<T, V, CPL>(src_state, addr(row, d), n_src, feat, group, lane, nchunk, nb);
-    const float act = (dst_act || group_sum(part, group, gmask) != 0.f) ? 1.f : 0.f;
+  // Slots d0 .. d0 + B - 1 (the ones below degree). Called from one place
+  // on each path, so that it is inlined and its arrays stay in registers.
+  auto batch = [&](auto d0) {
+    // 1. every load of the batch: the table entries, the flux rows (one
+    // group of copies with the destination row), then, once the entries are
+    // in, the source rows (a second group)
+    typename Addr::Raw entry[B];
+    bool in_range[B];
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = j * group + lane;
-      if (c >= nchunk) continue;
-      float sv[V];
-      load(s_tab + slot * feat + c * V, sv);
+    for (int b = 0; b < B; ++b)
+      if (d0 + b < degree) entry[b] = addr.fetch(row, d0 + b);
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float term;
-        if (with_gradient) {
-          float diff = __fsub_rn(o[j][i], nb[j][i]);
-          if (upwind) diff = diff < 0.f ? 0.f : diff;   // keeps NaN, as clamp_min does
-          term = __fmul_rn(diff, sv[i]);
-        } else {
-          term = __fmul_rn(sv[i], nb[j][i]);
-        }
-        acc[j][i] = __fadd_rn(acc[j][i], __fmul_rn(term, act));
+    for (int b = 0; b < B; ++b) {
+      if (d0 + b >= degree) continue;
+      const T* flux = s_tab + (row * degree + d0 + b) * feat;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int c = j * group + lane;
+        if (c < nchunk) st.template put<true>(kFlux + b * CPL + j, flux + c * V);
       }
     }
+    st.commit();
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      in_range[b] = false;
+      if (d0 + b >= degree) continue;
+      const int64_t s = addr.resolve(entry[b], d0 + b);
+      in_range[b] = s >= 0 && s < n_src;
+      if (!in_range[b]) continue;               // the row reads NaN
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int c = j * group + lane;
+        if (c < nchunk) st.template put<false>(kSrc + b * CPL + j, src_state + s * feat + c * V);
+      }
+    }
+    st.commit();
+
+    // 2. the first batch: the destination row's sum, while the source rows
+    // are in flight
+    if (d0 == 0) {
+      st.wait_older();
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        if (j * group + lane < nchunk) {
+          widen(st.get(j), o[j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) o[j][i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) part += o[j][i];
+      }
+      dst_act = group_sum(part, group, gmask) != 0.f;
+    }
+    st.wait_all();
+
+    // 3. the B row sums, reduced together (one shuffle of each a step), then
+    // the terms in slot order. A source chunk is widened where it is used
+    // (twice), so that only its storage-type copy stays live.
+    float sum[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      sum[b] = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        float x[V];
+        source_chunk(st.get(kSrc + b * CPL + j), j * group + lane < nchunk, in_range[b], x);
+#pragma unroll
+        for (int i = 0; i < V; ++i) sum[b] += x[i];
+      }
+    }
+    for (int off = group >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int b = 0; b < B; ++b) sum[b] += __shfl_xor_sync(gmask, sum[b], off, group);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (d0 + b >= degree) continue;
+      const float act = (dst_act || sum[b] != 0.f) ? 1.f : 0.f;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        if (j * group + lane >= nchunk) continue;
+        float nb[V], sv[V];
+        source_chunk(st.get(kSrc + b * CPL + j), true, in_range[b], nb);
+        widen(st.get(kFlux + b * CPL + j), sv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float term;
+          if (with_gradient) {
+            float diff = __fsub_rn(o[j][i], nb[i]);
+            if (upwind) diff = diff < 0.f ? 0.f : diff;   // keeps NaN, as clamp_min does
+            term = __fmul_rn(diff, sv[i]);
+          } else {
+            term = __fmul_rn(sv[i], nb[i]);
+          }
+          // acc + term * act with act 0 or 1: the product is exact, so one
+          // fused rounding gives the bits of a product and a sum
+          acc[j][i] = __fmaf_rn(term, act, acc[j][i]);
+        }
+      }
+    }
+  };
+
+  if constexpr (Addr::kStaticSlots) {
+    static_steps<0, B, kMaxDegree>(degree, batch);
+  } else {
+    for (int d0 = 0; d0 < degree; d0 += B) batch(d0);
   }
 
 #pragma unroll
@@ -376,9 +645,55 @@ inline Shape shape_for(int feat, int v) {
   return {group, (nchunk + group - 1) / group};
 }
 
-inline dim3 grid_for(int64_t rows, int group) {
+inline dim3 grid_for(int64_t rows, int group, int block = kThreads) {
   const int64_t threads = rows * group;
-  return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+  return dim3(static_cast<unsigned>((threads + block - 1) / block));
+}
+
+// Multiprocessors of the device current at the first call (0 if unknown).
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return count;
+}
+
+// Threads a forward block: 256, halved down to kFwdMinThreads while
+// the grid would give fewer than two blocks an SM. At the bench's 8 lanes a
+// row that is 256 threads at 23,168 rows, 128 at 5,888 and 64 at 1,536
+// (192 blocks where 256 threads gave 48).
+inline int fwd_block(int64_t threads) {
+  const int64_t want = 2 * static_cast<int64_t>(sm_count());
+  int block = kThreads;
+  while (block > kFwdMinThreads && (threads + block - 1) / block < want) block >>= 1;
+  return block;
+}
+
+template <typename T, typename Addr>
+using FwdKernel = void (*)(const T*, const T*, Addr, const T*, T*, int, int, int, int, int,
+                           int, int);
+
+template <typename T, int V, typename Addr>
+FwdKernel<T, Addr> fwd_kernel(int cpl) {
+  switch (cpl) {
+    case 1: return hop_fwd_kernel<T, V, 1, Addr>;
+    case 2: return hop_fwd_kernel<T, V, 2, Addr>;
+    case 3:
+    case 4: return hop_fwd_kernel<T, V, 4, Addr>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory of a forward block: the staged chunks of its lanes
+// (none where the chunks are staged in registers); at most 48 KB.
+template <typename T, int V>
+size_t fwd_smem(int cpl, int block) {
+  if (!kStaged<T, V>) return 0;
+  return static_cast<size_t>(fwd_stage_chunks(cpl == 3 ? 4 : cpl)) * block * 16;
 }
 
 template <typename T, int V, typename Addr>
@@ -386,23 +701,39 @@ int launch_fwd(const void* dst_state, const void* src_state, const Addr& addr,
                const void* s_tab, void* agg, int n_dst, int n_src, int feat, int degree,
                int with_gradient, int upwind, cudaStream_t stream) {
   const Shape sh = shape_for(feat, V);
-  const dim3 grid = grid_for(n_dst, sh.group);
-  const auto* d = static_cast<const T*>(dst_state);
-  const auto* s = static_cast<const T*>(src_state);
-  const auto* f = static_cast<const T*>(s_tab);
-  auto* a = static_cast<T*>(agg);
-#define MSWE_FWD(CPL)                                                              \
-  hop_fwd_kernel<T, V, CPL, Addr><<<grid, kThreads, 0, stream>>>(                  \
-      d, s, addr, f, a, n_dst, n_src, feat, degree, sh.group, with_gradient, upwind)
-  switch (sh.cpl) {
-    case 1: MSWE_FWD(1); break;
-    case 2: MSWE_FWD(2); break;
-    case 3:
-    case 4: MSWE_FWD(4); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef MSWE_FWD
+  const auto kernel = fwd_kernel<T, V, Addr>(sh.cpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int block = fwd_block(static_cast<int64_t>(n_dst) * sh.group);
+  kernel<<<grid_for(n_dst, sh.group, block), block, fwd_smem<T, V>(sh.cpl, block), stream>>>(
+      static_cast<const T*>(dst_state), static_cast<const T*>(src_state), addr,
+      static_cast<const T*>(s_tab), static_cast<T*>(agg), n_dst, n_src, feat, degree,
+      sh.group, with_gradient, upwind);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What a forward launch over n_rows rows of width feat uses: info[0]
+// threads a block, [1] blocks, [2] registers a thread, [3] local memory
+// (stack frame and spills) bytes a thread, [4] blocks one SM holds at once,
+// [5] lanes a row, [6] dynamic shared memory bytes a block. Returns a
+// cudaError_t.
+template <typename T, int V, typename Addr>
+int info_fwd(int feat, int n_rows, int* info) {
+  const Shape sh = shape_for(feat, V);
+  const auto kernel = fwd_kernel<T, V, Addr>(sh.cpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int block = fwd_block(static_cast<int64_t>(n_rows) * sh.group);
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  int resident = 0;
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, block,
+                                                       fwd_smem<T, V>(sh.cpl, block));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int out[7] = {block, static_cast<int>(grid_for(n_rows, sh.group, block).x),
+                      attr.numRegs, static_cast<int>(attr.localSizeBytes), resident, sh.group,
+                      static_cast<int>(fwd_smem<T, V>(sh.cpl, block))};
+  for (int i = 0; i < 7; ++i) info[i] = out[i];
+  return 0;
 }
 
 template <typename T, int V, typename Addr>
@@ -459,6 +790,17 @@ int fwd_any(int dtype, int vectorized, const void* dst_state, const void* src_st
         : launch_fwd<__nv_bfloat16, 1>(dst_state, src_state, addr, s_tab, agg, n_dst, n_src,
                                        feat, degree, with_gradient, upwind, st);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Addr>
+int fwd_info_any(int dtype, int vectorized, int feat, int n_rows, int* info) {
+  if (dtype == 0)
+    return vectorized ? info_fwd<float, 4, Addr>(feat, n_rows, info)
+                      : info_fwd<float, 1, Addr>(feat, n_rows, info);
+  if (dtype == 1)
+    return vectorized ? info_fwd<__nv_bfloat16, 8, Addr>(feat, n_rows, info)
+                      : info_fwd<__nv_bfloat16, 1, Addr>(feat, n_rows, info);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -28,6 +28,7 @@ upwind the difference passes its gradient where it is > 0.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -41,6 +42,8 @@ _MAX_CHUNKS = 128       # 32 lanes x 4 chunks a lane (the kernels' CPL <= 4)
 
 launches = 0            # forward kernel launches; reset with reset_launches()
 bwd_launches = 0        # backward kernel launches
+# the same launches by ("hop" or "hop_bwd", Nd, Ns)
+launches_by_shape: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -49,9 +52,13 @@ _fns: dict = {}
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = bwd_launches = 0
+    launches_by_shape.clear()
 
 
 def _kernels() -> dict:
+    """The library's launch functions, typed for ctypes: ``fwd``, ``bwd``
+    and ``fwd_info`` (the forward's block size, grid, registers, local
+    memory and blocks an SM, for a row count)."""
     with _lock:
         if not _fns:
             lib = kernel_build.load("hop")
@@ -61,7 +68,10 @@ def _kernels() -> dict:
             bwd = lib.mswe_hop_bwd_launch
             bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             bwd.restype = ctypes.c_int
-            _fns.update(fwd=fwd, bwd=bwd)
+            info = lib.mswe_hop_fwd_info
+            info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+            info.restype = ctypes.c_int
+            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info)
         return _fns
 
 
@@ -200,6 +210,7 @@ def _hop_forward(dst_state, src_state, src_tab, s_tab, with_gradient, upwind):
             int(with_gradient), int(upwind), stream)
     check_launch(rc, "hop")
     launches += 1
+    launches_by_shape["hop", n_dst, src_state.shape[0]] += 1
     return agg
 
 
@@ -281,6 +292,7 @@ def hop_backward(dst_state: torch.Tensor, src_state: torch.Tensor, src_tab: torc
             vectorized, int(with_gradient), int(upwind), int(same_block), stream)
     check_launch(rc, "hop backward")
     bwd_launches += 1
+    launches_by_shape["hop_bwd", n_dst, n_src] += 1
     if same_block:
         return g_src, None, gs
     return g_dst, g_src, gs

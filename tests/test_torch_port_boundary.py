@@ -1,6 +1,6 @@
 """Boundaries of the PyTorch port that every slice keeps:
 
-- ``mswe_gnn_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, its
+- ``mswe_gnn_tpu_torch``, ``chip_smoke.py`` and ``kernel_ab.py`` import nothing of JAX, its
   libraries or the JAX package (an AST scan of every import);
 - the entry points run on the GPU unless the caller names a device, and
   raise where there is none, with no silent CPU fallback.
@@ -22,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mswe_gnn_tpu")
 
 def port_sources():
     files = sorted((ROOT / "mswe_gnn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def imported_modules(path: Path):

@@ -7,10 +7,13 @@ Run on a machine with one NVIDIA GPU, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -q
 
-Tolerances: the kernel adds the same float32 terms in the same order as
-``hop_reference``, so float32 agrees to 1e-6 (1 + |ref|) and bfloat16 within
-one bf16 ulp (``chip_smoke.within_limit``, the smoke test's limit). The
-model on the card against the CPU: rtol 1e-5, atol 1e-4 in float32 —
+Tolerances: the kernels add the same float32 terms in the same order as
+their plain versions and round once, so they agree to the bit (NaN where
+the plain version has NaN). The forward is held so at every slot count of
+its batches (D = 1..16, tails that are not a multiple of the batch), in the
+vector (F = 64) and scalar (F = 20) layouts, on grids smaller than the SM
+count, and with out-of-range indices. The model on the card against the
+CPU: rtol 1e-5, atol 1e-4 in float32 —
 cuBLAS sums the matmuls in another order. A train step (loss and
 gradients) on the card against the CPU: the loss within rtol 1e-5, every
 gradient leaf within 1e-4 * max|leaf| + 1e-6.
@@ -18,8 +21,8 @@ gradient leaf within 1e-4 * max|leaf| + 1e-6.
 import pytest
 import torch
 
-from chip_smoke import (band_inputs, banded_problem, make_hop_inputs, slot_mask_of, upstream,
-                        within_limit)
+import chip_smoke as cs
+from chip_smoke import band_inputs, banded_problem, make_hop_inputs, slot_mask_of, upstream
 from mswe_gnn_tpu_torch import tree_leaves, tree_to
 from mswe_gnn_tpu_torch.bench_problem import build_bench_sample
 from mswe_gnn_tpu_torch.data import dataset as port_dataset
@@ -33,6 +36,14 @@ from mswe_gnn_tpu_torch.training.rollout import rollout
 pytestmark = pytest.mark.gpu
 
 MODES = [(True, False), (True, True), (False, False)]
+DEGREES = [1, 2, 3, 4, 5, 7, 8, 16]      # slot batches of 4 (F=64) and their tails
+
+
+def assert_bit_equal(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan]), float((got.float() - want.float()).abs().max())
 
 
 @pytest.fixture
@@ -45,17 +56,38 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("degree", DEGREES)
 @pytest.mark.parametrize("n_dst,n_src,feat,same_block", [
-    (1000, 1000, 64, True), (517, 130, 64, False), (333, 333, 20, True)])
-def test_kernel_matches_plain_version(cuda, dtype, with_gradient, upwind,
+    (1000, 1000, 64, True), (517, 130, 64, False), (333, 333, 20, True),
+    (100, 100, 64, True), (200, 37, 20, False)])      # the last two: fewer blocks than SMs
+def test_kernel_matches_plain_version(cuda, dtype, with_gradient, upwind, degree,
                                       n_dst, n_src, feat, same_block):
-    args = make_hop_inputs(0, n_dst, n_src, 4, feat, dtype, same_block, cuda)
-    before = hop_ops.launches
+    args = make_hop_inputs(degree, n_dst, n_src, degree, feat, dtype, same_block, cuda)
+    key = ("hop", n_dst, args[1].shape[0])
+    before = hop_ops.launches, hop_ops.launches_by_shape[key]
     got = hop_ops.hop(*args, with_gradient=with_gradient, upwind=upwind)
-    assert hop_ops.launches == before + 1
+    assert (hop_ops.launches, hop_ops.launches_by_shape[key]) == (before[0] + 1, before[1] + 1)
     want = hop_ops.hop_reference(*args, with_gradient=with_gradient, upwind=upwind)
-    ok, err = within_limit(got, want, dtype)
-    assert ok, err
+    assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("degree", [1, 4, 5, 16])
+@pytest.mark.parametrize("feat", [64, 20])
+def test_out_of_range_index_reads_a_nan_row(cuda, dtype, with_gradient, upwind, degree, feat):
+    """A slot outside the source reads NaN (jnp.take's fill): its row of the
+    output is NaN, every other row is the plain version's."""
+    dst, src, tab, s = make_hop_inputs(11, 300, 120, degree, feat, dtype, False, cuda)
+    bad = torch.tensor([3, 77, 250], device=cuda)
+    tab[bad, degree - 1] = torch.tensor([120, -1, 5000], dtype=torch.int32, device=cuda)
+    got = hop_ops.hop(dst, src, tab, s, with_gradient=with_gradient, upwind=upwind)
+    want = hop_ops.hop_reference(dst, src, tab.clamp(0, 119), s, with_gradient=with_gradient,
+                                 upwind=upwind)
+    rows = torch.zeros(300, dtype=torch.bool, device=cuda)
+    rows[bad] = True
+    assert bool(torch.isnan(got[rows]).all())
+    assert_bit_equal(got[~rows], want[~rows])
 
 
 @pytest.fixture
@@ -82,6 +114,7 @@ def test_rollout_on_the_card_matches_the_cpu(cuda, small_problem):
     got = rollout(apply_fn, tree_to(params, cuda), cfg, g, steps=3)   # default device
     assert got.device.type == "cuda"
     assert hop_ops.launches == 3 * (sum(cfg.k_schedule) + cfg.num_scales - 1)
+    assert cs.read_launches() == cs.rollout_launches(cfg, g.spec, 3)      # by shape
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
@@ -101,21 +134,24 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, with_gradient, upwin
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if a is not None:
-            ok, err = within_limit(a, b, dtype)
-            assert ok, err
+            assert_bit_equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_gradient,upwind", MODES)
 @pytest.mark.parametrize("tail", [0, 40])
-def test_band_kernels_match_plain_versions(cuda, dtype, with_gradient, upwind, tail):
-    plan, mask = banded_problem(3, 1024, 4, 6 if tail else 40, 64, tail)
-    state, s, idx_rel, win = band_inputs(4, plan, mask, 64, dtype)
+@pytest.mark.parametrize("degree,feat", [(4, 64), (3, 20), (7, 64), (16, 64), (16, 20)])
+def test_band_kernels_match_plain_versions(cuda, dtype, with_gradient, upwind, tail, degree,
+                                           feat):
+    # with a tail, 2048 rows: a window over the whole block would pass max_w,
+    # so the planner has to take the ghost tail at every degree
+    plan, mask = banded_problem(3, 2048 if tail else 1024, degree, 6 if tail else 40, feat,
+                                tail)
+    state, s, idx_rel, win = band_inputs(4, plan, mask, feat, dtype)
     kw = dict(ws=plan.ws, we=plan.we, with_gradient=with_gradient, upwind=upwind)
     before = (band_ops.launches, band_ops.bwd_launches)
-    ok, err = within_limit(band_ops.band_hop(state, s, idx_rel, win, **kw),
-                           band_ops.band_hop_reference(state, s, idx_rel, win, **kw), dtype)
-    assert ok, err
+    assert_bit_equal(band_ops.band_hop(state, s, idx_rel, win, **kw),
+                     band_ops.band_hop_reference(state, s, idx_rel, win, **kw))
     src = band_ops.band_sources(idx_rel, win, plan.ws, plan.we)
     table = hop_ops.out_slot_table(src, len(src), mask.to(cuda))
     g = upstream(5, state)
@@ -123,8 +159,7 @@ def test_band_kernels_match_plain_versions(cuda, dtype, with_gradient, upwind, t
     want = band_ops.band_hop_backward_reference(state, s, idx_rel, win, g, *table, **kw)
     assert (band_ops.launches, band_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
     for a, b in zip(got, want):
-        ok, err = within_limit(a, b, dtype)
-        assert ok, err
+        assert_bit_equal(a, b)
 
 
 def test_hop_on_the_card_carries_its_gradient(cuda):
@@ -162,6 +197,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
                                             graph.to(cuda), 2, opts, True)
     assert band_ops.launches == 2 * band_ops.bwd_launches > 0     # remat: forward twice
     assert hop_ops.launches == 2 * hop_ops.bwd_launches > 0
+    assert cs.read_launches() == cs.train_launches(cfg, graph.spec, graph.band_meta, 2, True)
     torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=0)
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-6)

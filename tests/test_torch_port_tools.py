@@ -1,0 +1,150 @@
+"""The host side of the port's chip tooling, on the CPU: what ``chip_smoke.py``
+and ``kernel_ab.py`` read from the compiler, the launches they expect of
+each hop shape and how they read the counted ones, the bench tables they
+time the kernels on, and the build paths of other versions of the kernel
+sources. No kernel runs here.
+"""
+import shutil
+from collections import Counter
+
+import pytest
+import torch
+
+import chip_smoke as cs
+import kernel_ab
+from mswe_gnn_tpu_torch.bench_problem import build_bench_model, build_bench_sample
+from mswe_gnn_tpu_torch.models import prepare_graph
+from mswe_gnn_tpu_torch.ops import build as kernel_build
+from mswe_gnn_tpu_torch.ops import hop as hop_ops
+from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
+
+FWD = "_ZN4mswe14hop_fwd_kernelI13__nv_bfloat16Li8ELi1ENS_7EllAddrEEEvPKT_S5_T2_S5_PS3_iiiiiii"
+BWD = "_ZN4mswe14hop_bwd_kernelIfLi4ELi2ENS_8BandAddrEEEvPKT_S4_T2_S4_S4_PKiS8_PS2_S9_S9_iiiiiiii"
+PTXAS_LOG = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
+ptxas info    : Function properties for {FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 0 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '{BWD}' for 'sm_90a'
+ptxas info    : Function properties for {BWD}
+    96 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 60 registers, used 0 barriers, 480 bytes cmem[0]
+"""
+
+
+def test_ptxas_functions_reads_every_kernel():
+    got = cs.ptxas_functions(PTXAS_LOG)
+    assert got == {
+        "hop_fwd_kernel<bf16, V=8, CPL=1, EllAddr>":
+            {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 118},
+        "hop_bwd_kernel<f32, V=4, CPL=2, BandAddr>":
+            {"stack": 96, "spill_stores": 8, "spill_loads": 4, "registers": 60}}
+
+
+@pytest.fixture(scope="module")
+def bench32():
+    """The bench problem on a 32x32 grid, with the band plan on its two
+    finer scales, and the bench model (F=64, K=5) on the CPU."""
+    sample, _ = build_bench_sample(32, 32, 4)
+    banded = attach_band_plan(sample, min_nodes=sample.spec.node_counts[1])
+    cfg, params, _ = build_bench_model(sample, device="cpu")
+    return sample, banded, cfg, params
+
+
+def test_launch_counts_by_shape(bench32):
+    sample, banded, cfg, _ = bench32
+    spec = banded.spec
+    planned = [i for i, m in enumerate(banded.band_meta) if m is not None]
+    assert planned == [0, 1]
+    serving = cs.hops_per_step(cfg, spec)
+    assert sum(serving.values()) == 27 and {k[0] for k in serving} == {"hop"}
+    n0, n1, n2 = spec.node_counts
+    assert serving[("hop", n0, n0)] == serving[("hop", n1, n1)] == 10
+    assert serving[("hop", n2, n2)] == 5
+    assert serving[("hop", n0, n1)] == serving[("hop", n1, n2)] == 1
+    train = cs.hops_per_step(cfg, spec, banded.band_meta)
+    assert train[("band_hop", n0, n0)] == train[("band_hop", n1, n1)] == 10
+    step = cs.train_launches(cfg, spec, banded.band_meta, 6, True)
+    assert cs.by_kernel(step) == {"band_hop": 240, "band_hop_bwd": 120, "hop": 84, "hop_bwd": 42}
+    assert step[("hop", n2, n2)] == 60 and step[("hop_bwd", n2, n2)] == 30
+    assert step[("band_hop", n0, n0)] == 120 and step[("hop_bwd", n0, n1)] == 6
+    rollout = cs.rollout_launches(cfg, spec, 47)
+    assert cs.by_kernel(rollout) == {"hop": 27 * 47, "hop_bwd": 0, "band_hop": 0,
+                                     "band_hop_bwd": 0}
+    assert rollout[("hop", n2, n2)] == 235 and rollout[("hop", n0, n1)] == 47
+
+
+def test_read_launches_holds_shapes_against_totals(monkeypatch):
+    """The smoke reads the wrappers' counts by shape, checks that they sum to
+    the totals by kernel, and fails on any count the config does not give."""
+    cs.reset_all_launches()
+    monkeypatch.setattr(hop_ops, "launches", 3)
+    monkeypatch.setattr(hop_ops, "bwd_launches", 1)
+    hop_ops.launches_by_shape.update({("hop", 8, 8): 2, ("hop", 8, 4): 1, ("hop_bwd", 8, 4): 1})
+    try:
+        counts = cs.read_launches()
+        assert counts == {("hop", 8, 8): 2, ("hop", 8, 4): 1, ("hop_bwd", 8, 4): 1}
+        cs.hold_launches("test", "a pass", counts, counts.copy())
+        with pytest.raises(AssertionError, match="expected"):
+            cs.hold_launches("test", "a pass", counts, counts + Counter({("hop", 8, 8): 1}))
+        monkeypatch.setattr(hop_ops, "launches", 4)
+        with pytest.raises(AssertionError, match="do not sum"):
+            cs.read_launches()
+    finally:
+        cs.reset_all_launches()
+
+
+def test_bench_hop_cases_are_the_rollout_tables(bench32):
+    sample, _, cfg, params = bench32
+    spec = sample.spec
+    with torch.no_grad():
+        cache = prepare_graph(params, cfg, sample).ell_cache
+    cases = cs.bench_hop_cases(cache, spec, device="cpu")
+    assert [(same, grad) for _, _, grad, same in cases] == [(True, True)] * 3 + [(False, False)] * 2
+    tables = [c[2] for c in cache["scales"]] + [u[2] for u in cache["unpools"]]
+    masks = [c[1] for c in cache["scales"]] + [u[1] for u in cache["unpools"]]
+    for (name, (dst, src, tab, s), grad, same), want, mask in zip(cases, tables, masks):
+        assert torch.equal(tab, want) and tab.dtype == torch.int32
+        assert (dst is src) == same and dst.dtype == s.dtype == torch.bfloat16
+        assert s.shape == (*tab.shape, cs.FEAT)
+        assert torch.equal(cs.slot_mask_of(s), mask > 0)       # masked slots carry no flux
+        assert f"Nd={dst.shape[0]} Ns={src.shape[0]}" in name
+        out = hop_ops.hop(dst, src, tab, s, with_gradient=grad)
+        assert out.shape == dst.shape and bool(torch.isfinite(out).all())
+
+
+def test_library_path_tracks_sources_and_flags(tmp_path, monkeypatch):
+    other = tmp_path / "csrc"
+    shutil.copytree(kernel_build.CSRC_DIR, other)
+    base = kernel_build.library_path("hop")
+    assert kernel_build.library_path("hop", other) == base        # same bytes, same flags
+    with monkeypatch.context() as m:
+        m.setattr(kernel_build, "NVCC_FLAGS", (*kernel_build.NVCC_FLAGS, "-lineinfo"))
+        assert kernel_build.library_path("hop", other) != base
+    (other / "hop_common.cuh").write_text("// another header\n")
+    assert kernel_build.library_path("hop", other) != base
+    with pytest.raises(ValueError, match="unknown kernel library"):
+        kernel_build.source("nope")
+
+
+def test_kernel_ab_parses_versions():
+    assert kernel_ab.parse_pair("parent=../csrc") == ("parent", "../csrc")
+    assert kernel_ab.parse_pair("pr2=_ab/a=b") == ("pr2", "_ab/a=b")
+    for bad in ("../csrc", "=../csrc", "parent="):
+        with pytest.raises(SystemExit, match="NAME=DIR"):
+            kernel_ab.parse_pair(bad)
+
+
+def test_build_keeps_the_compiler_log_for_a_later_call(tmp_path, monkeypatch):
+    """A library built earlier in the process (or by another script) still
+    reports its ptxas lines, which chip_smoke's build check reads."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+                    "echo 'ptxas info    : Used 7 registers'\n: > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(kernel_build, "_nvcc", lambda: str(nvcc))
+    first = kernel_build.build("hop")["hop"]
+    again = kernel_build.build("hop")["hop"]
+    assert "Used 7 registers" in first["log"] and again["log"] == first["log"]
+    assert again["path"] == first["path"] and again["seconds"] == 0.0
