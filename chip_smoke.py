@@ -10,14 +10,15 @@ Phases, each printing its own lines:
    limit as ``nvidia-smi`` reports them.
 2. build   -- compiles ``mswe_gnn_tpu_torch/ops/csrc/hop.cu`` and
    ``band_hop.cu`` for sm_90a, one ``nvcc`` each, in parallel; prints the
-   registers, stack frame and spills of every kernel, and fails if a
-   forward instantiation has a stack frame or spills.
+   registers, stack frame and spills of every kernel, and fails unless
+   each of the 24 forward and 24 backward instantiations is there with no
+   stack frame and no spills.
 3. kernels -- every kernel against its plain PyTorch version on the card:
    the ELL hop and its backward (every mode, both dtypes, same-block and
-   separate-source calls, ragged shapes and the bench shapes), the banded
-   hop and its backward (the bench plans of scales 0 and 1, ragged and
-   ghost-tail plans), and a repeat launch of each backward, which must give
-   the same bits.
+   separate-source calls, ragged shapes, a skewed out-slot table and the
+   bench shapes), the banded hop and its backward (the bench plans of
+   scales 0 and 1, ragged, skewed and ghost-tail plans), and a repeat
+   launch of each backward, which must give the same bits.
 4. serving -- the bench problem of ``bench.py:75-120`` rebuilt through the
    port (152x152 grid, 3 scales, F=64, K=5, bf16), its 47-step rollout on
    the card with the hop-kernel launches counted by kernel and by shape
@@ -32,7 +33,7 @@ Phases, each printing its own lines:
    ``eval_step`` over the 47-step graph; peak device memory.
 6. timing  -- every kernel at the bench shapes, on the bench graph's own
    tables and plans: kernel, L2 flushed, plain version, bound, the launch
-   floor of the harness, the forward's launch (block, registers, warps an
+   floor of the harness, each launch (block, grid, registers, warps an
    SM), and the launches of each shape on each path as phases 4 and 5
    counted them, with their sum of launches x time.
 
@@ -127,10 +128,24 @@ def ptxas_functions(log_text: str) -> dict:
     return out
 
 
+def check_instantiations(functions: dict, expected: int = 24) -> None:
+    """Raises unless ``expected`` forward and ``expected`` backward hop
+    instantiations are among ``functions`` (``ptxas_functions``), each with
+    no stack frame and no spills: a batch's entries and sums are meant to
+    live in registers, and the band widths at constant parameter offsets."""
+    for kind in ("hop_fwd_kernel", "hop_bwd_kernel"):
+        found = {fn: r for fn, r in functions.items() if fn.startswith(kind)}
+        bad = [fn for fn, r in found.items()
+               if r.get("stack") != 0 or r.get("spill_stores") != 0 or r.get("spill_loads") != 0]
+        if len(found) != expected or bad:
+            raise AssertionError(f"{kind} instantiations: {len(found)} found ({expected} "
+                                 f"expected); with a stack frame or spills: {bad}")
+
+
 def phase_build() -> dict:
     """Builds both libraries; prints registers, stack frame and spills of
-    every kernel, and fails if a forward instantiation has a stack frame or
-    spills (its slot batches are meant to live in registers)."""
+    every kernel, and fails unless every forward and backward instantiation
+    is there without a stack frame or spills (``check_instantiations``)."""
     t0 = time.perf_counter()
     built = kernel_build.build()
     functions = {}
@@ -141,19 +156,17 @@ def phase_build() -> dict:
                 f"frame, {r.get('spill_stores')}/{r.get('spill_loads')} bytes spill stores/loads")
             functions[fn] = r
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
-    fwd = {fn: r for fn, r in functions.items() if fn.startswith("hop_fwd_kernel")}
-    bad = [fn for fn, r in fwd.items()
-           if r.get("stack") != 0 or r.get("spill_stores") != 0 or r.get("spill_loads") != 0]
-    if len(fwd) != 24 or bad:
-        raise AssertionError(f"forward instantiations: {len(fwd)} found (24 expected); "
-                             f"with a stack frame or spills: {bad}")
+    check_instantiations(functions)
     return functions
 
 
 # ---------------------------------------------------------------- phase 3
 def make_hop_inputs(seed, n_dst, n_src, degree, feat, dtype, same_block,
-                    device="cuda"):
-    """Random hop inputs with dry (all-zero) rows and masked (zero) slots."""
+                    device="cuda", skew=False):
+    """Random hop inputs with dry (all-zero) rows and masked (zero) slots.
+    ``skew``: the slots read only the first half of the source rows, and
+    slot 0 of the first 80 rows reads source row 1, so that the out-slot
+    table has one long list and many empty ones."""
     g = torch.Generator().manual_seed(seed)
     dst = torch.randn(n_dst, feat, generator=g)
     dst[torch.rand(n_dst, generator=g) < 0.3] = 0.0
@@ -164,6 +177,9 @@ def make_hop_inputs(seed, n_dst, n_src, degree, feat, dtype, same_block,
         src = torch.randn(n_src, feat, generator=g)
         src[torch.rand(n_src, generator=g) < 0.3] = 0.0
     tab = torch.randint(0, src_rows, (n_dst, degree), generator=g, dtype=torch.int32)
+    if skew:
+        tab //= 2
+        tab[:80, 0] = 1
     s = torch.randn(n_dst, degree, feat, generator=g)
     s[torch.rand(n_dst, degree, generator=g) < 0.25] = 0.0
     dst = dst.to(device=device, dtype=dtype)
@@ -237,11 +253,13 @@ def check_ell(checks: Checks) -> None:
               ("ragged Nd=333 Ns=91 F=36", 333, 91, 5, 36, False),
               ("wide Nd=515 F=512", 515, 515, 2, 512, True),
               ("wide Nd=129 F=200 Ns=64", 129, 64, 8, 200, False)]
+    cases = [c + (False,) for c in cases] + [("skewed Nd=600", 600, 600, 4, 64, True, True),
+                                             ("skewed Nd=600 Ns=97", 600, 97, 4, 64, False, True)]
     hop_ops.reset_launches()
     fwd_calls = bwd_calls = 0
-    for seed, (name, n_dst, n_src, degree, feat, same) in enumerate(cases):
+    for seed, (name, n_dst, n_src, degree, feat, same, skew) in enumerate(cases):
         for dtype in DTYPES:
-            args = make_hop_inputs(seed, n_dst, n_src, degree, feat, dtype, same)
+            args = make_hop_inputs(seed, n_dst, n_src, degree, feat, dtype, same, skew=skew)
             dst, src, tab, s = args
             # even cases leave the zero-flux slots out of the out-slot table
             table = hop_ops.out_slot_table(tab, src.shape[0],
@@ -275,12 +293,17 @@ def check_ell(checks: Checks) -> None:
                              f"!= {fwd_calls}/{bwd_calls} calls")
 
 
-def banded_problem(seed, n, degree, bw, feat, tail_rows=0):
+def banded_problem(seed, n, degree, bw, feat, tail_rows=0, skew=False):
     """Random band-limited slot sources (and, with ``tail_rows``, some that
-    read the last rows, as ghost cells do) planned by ``plan_band``."""
+    read the last rows, as ghost cells do) planned by ``plan_band``.
+    ``skew``: the slots read even rows only, and slot 0 of the 80 rows
+    around the middle reads the middle row (``bw`` >= 40)."""
     g = torch.Generator().manual_seed(seed)
     src = (torch.arange(n)[:, None]
            + torch.randint(-bw, bw + 1, (n, degree), generator=g)).clamp(0, n - 1)
+    if skew:
+        src = src // 2 * 2
+        src[n // 2 - 40:n // 2 + 40, 0] = n // 2
     if tail_rows:
         rows = torch.randint(0, n - band_ops.TILE, (tail_rows,), generator=g)
         src[rows, 0] = torch.randint(n - 8, n, (tail_rows,), generator=g)
@@ -304,11 +327,13 @@ def band_inputs(seed, plan, mask, feat, dtype):
 def check_band(checks: Checks, bench_plans) -> None:
     cases = [(f"bench scale {i} N={p.idx_rel.shape[0]}", p, m, FEAT)
              for i, (p, m) in enumerate(bench_plans)]
-    for seed, (n, degree, bw, feat, tail) in enumerate(
-            [(512, 4, 40, 64, 0), (1024, 4, 6, 32, 40), (640, 3, 60, 20, 0),
-             (1536, 5, 12, 36, 20), (256, 2, 20, 200, 0)]):
-        plan, mask = banded_problem(seed, n, degree, bw, feat, tail)
-        cases.append((f"N={n} D={degree} F={feat} we={plan.we}", plan, mask, feat))
+    for seed, (n, degree, bw, feat, tail, skew) in enumerate(
+            [(512, 4, 40, 64, 0, False), (1024, 4, 6, 32, 40, False), (640, 3, 60, 20, 0, False),
+             (1536, 5, 12, 36, 20, False), (256, 2, 20, 200, 0, False),
+             (1024, 4, 40, 64, 0, True)]):
+        plan, mask = banded_problem(seed, n, degree, bw, feat, tail, skew)
+        cases.append((f"N={n} D={degree} F={feat} we={plan.we}{' skewed' if skew else ''}",
+                      plan, mask, feat))
     band_ops.reset_launches()
     fwd_calls = bwd_calls = 0
     for seed, (name, plan, mask, feat) in enumerate(cases):
@@ -464,6 +489,11 @@ def table_bytes(table):
 def log_timing(name, row):
     extra = (f"; out-slot table {row['table_bytes'] / 1e6:.2f} MB more, not in the bound"
              if "table_bytes" in row else "")
+    if "launch" in row:
+        li = row["launch"]
+        extra += (f"; launch {li['block']} threads x {li['grid']} blocks, {li['registers']} "
+                  f"registers, {li['local_bytes']} B local, {li['smem_bytes']} B shared, "
+                  f"{li['warps_per_sm']} warps an SM")
     log(f"[timing] {name} {row['shape']}: kernel {row['ms'] * 1e3:.2f} us "
         f"(L2 flushed {row['cold_l2_ms'] * 1e3:.2f} us), plain {row['plain_ms'] * 1e3:.1f} us, "
         f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bytes'] / 1e6:.2f} MB, "
@@ -477,14 +507,15 @@ def launch_floor_ms(reps=200) -> float:
     return graph_time_ms(lambda: one.add_(1.0), reps)
 
 
-def launch_info(fns, dtype, feat, rows) -> dict:
-    """The forward launch a library makes over ``rows`` rows (its
-    ``fwd_info``): threads a block, blocks, registers a thread, local-memory
-    bytes a thread, blocks one SM holds, lanes a row, dynamic shared memory
-    a block; and the warps an SM holds."""
+def launch_info(fns, dtype, feat, rows, kind="fwd", extra=()) -> dict:
+    """The launch a library makes over ``rows`` rows (its ``fwd_info``, or
+    with ``kind="bwd"`` its ``bwd_info``, which for the ELL hop takes
+    ``extra = (Ns, same_block)``): threads a block, blocks, registers a
+    thread, local-memory bytes a thread, blocks one SM holds, lanes a row,
+    dynamic shared memory a block; and the warps an SM holds."""
     buf = (ctypes.c_int * 7)()
-    hop_ops.check_launch(fns["fwd_info"](hop_ops.DTYPE_CODES[dtype], 1, feat, rows, buf),
-                         "forward launch info")
+    hop_ops.check_launch(fns[f"{kind}_info"](hop_ops.DTYPE_CODES[dtype], 1, feat, rows,
+                                             *extra, buf), f"{kind} launch info")
     info = dict(zip(("block", "grid", "registers", "local_bytes", "blocks_per_sm", "lanes",
                      "smem_bytes"), buf))
     info["warps_per_sm"] = info["blocks_per_sm"] * info["block"] // 32
@@ -545,10 +576,10 @@ def timing_cases(banded, cache, cfg) -> list:
     (``cache``, ``bench_hop_cases``), the ELL backward at the train step's
     ELL shapes, the band kernels on the bench plans. -> ``[{"kernel",
     "shape", "key", "run", "plain", "bound_ms", "bound_by", "bytes",
-    "ops"}]``: ``key`` is ``(kernel, Nd, Ns)`` as the wrappers count
-    launches, ``run`` and ``plain`` call the wrapper and the plain version on
-    the same inputs; a forward also has ``launch`` (``launch_info``), a
-    backward ``table_bytes``."""
+    "ops", "launch"}]``: ``key`` is ``(kernel, Nd, Ns)`` as the wrappers
+    count launches, ``run`` and ``plain`` call the wrapper and the plain
+    version on the same inputs, ``launch`` is ``launch_info``; a backward
+    also has ``table_bytes``."""
     spec = banded.spec
     train_ell = {(nd, ns) for kernel, nd, ns in hops_per_step(cfg, spec, banded.band_meta)
                  if kernel == "hop"}
@@ -572,7 +603,9 @@ def timing_cases(banded, cache, cfg) -> list:
             case("hop_bwd", name, nd, ns, partial(hop_ops.hop_backward, *args, g, *table, grad),
                  partial(hop_ops.hop_backward_reference, *args, g, *table, grad),
                  hop_bwd_work(nd, ns, DEGREE, FEAT, 2, same, grad),
-                 table_bytes=table_bytes(table))
+                 table_bytes=table_bytes(table),
+                 launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd, "bwd",
+                                    (ns, int(same))))
     for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
         if plan is None:
             continue
@@ -595,7 +628,8 @@ def timing_cases(banded, cache, cfg) -> list:
         case("band_hop_bwd", shape, n, n,
              partial(band_ops.band_hop_backward, *args, g, *table, **kw),
              partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
-             (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table))
+             (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table),
+             launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n, "bwd"))
     return cases
 
 

@@ -3,29 +3,31 @@ one NVIDIA GPU.
 
 Run from the root of the repository:
 
-    python3 kernel_ab.py --other NAME=DIR [--out FILE]
+    python3 kernel_ab.py --other NAME=DIR [--other NAME=DIR ...] [--out FILE]
 
-``DIR`` holds the other checkout's ``hop.cu``, ``band_hop.cu`` and
-``hop_common.cuh`` with this checkout's C launch interface, for example
-``git archive <commit> mswe_gnn_tpu_torch/ops/csrc`` unpacked into a
-directory that ``.gitignore`` lists (``_ab/``). Both versions are compiled
-at once, one ``nvcc`` a source, and launched through this checkout's
-wrappers. Then, on the bench problem of ``chip_smoke.py`` (152x152 grid,
-F=64, bf16):
+``DIR`` holds another checkout's ``hop.cu``, ``band_hop.cu`` and
+``hop_common.cuh`` whose launch symbols (``mswe_hop_launch``,
+``mswe_hop_bwd_launch`` and the band ones) take this checkout's C
+arguments, for example ``git archive <commit> mswe_gnn_tpu_torch/ops/csrc``
+unpacked into a directory that ``.gitignore`` lists (``_ab/``); nothing
+else is loaded from it. All versions are compiled at once, one ``nvcc`` a
+source, and launched through this checkout's wrappers. Then, on the bench
+problem of ``chip_smoke.py`` (152x152 grid, F=64, bf16):
 
 1. every case of ``chip_smoke.timing_cases`` (the rollout's five ELL
    forward shapes on the bench graph's own tables, the ELL backward at the
    train step's ELL shapes, the band kernels on the two bench plans), and
    the five ELL forward shapes again on uniformly random tables: both
-   versions' results against the plain version's, bit for bit, then both
-   timed in turns (NAME, this, this, NAME) by CUDA-graph replay, beside
-   the bound and the launch floor (read before and after);
-2. the 47-step rollout and one train step with both versions, in turns
-   (NAME, this, this, NAME, twice), as host-bound readings; the launches of
-   the first run of each, counted by the wrappers by kernel and shape, are
-   held against the config's;
-3. each forward kernel's sum of launches x time on each path, for both
-   versions, from those counts.
+   versions' results against the plain version's, bit for bit, then all
+   timed in turns (the others, this; then in reverse: NAME, this, this,
+   NAME for one other) by CUDA-graph replay, beside the bound and the
+   launch floor (read before and after);
+2. the 47-step rollout and one train step with every version, in the same
+   turns, twice, as host-bound readings; the launches of the first run of
+   each, counted by the wrappers by kernel and shape, are held against the
+   config's;
+3. each kernel's (forwards and backwards) sum of counted launches x time
+   on each path, for every version, and the same over the bound.
 
 It prints the card's name and power limit first and last, a line per
 reading, and writes every reading as JSON to ``--out``.
@@ -67,18 +69,18 @@ def parse_pair(item: str):
     return name, value
 
 
-def build_versions(name: str, other_dir: str) -> list:
-    """Compiles the other checkout's libraries and this one's at once ->
-    ``[other, this]``, each ``{"name", "source", "fns", "ptxas"}``: ``fns``
-    maps a library to the launch functions that replace the shipped ones
-    (none for this checkout), typed as the shipped ones."""
+def build_versions(others) -> list:
+    """Compiles the other checkouts' libraries (``[(name, dir)]``) and this
+    one's at once -> ``[*others, this]``, each ``{"name", "source", "fns",
+    "ptxas"}``: ``fns`` maps a library to the launch functions that replace
+    the shipped ones (none for this checkout), typed as the shipped ones."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        other, this = pool.map(lambda d: kernel_build.build(csrc_dir=d),
-                               (Path(other_dir), kernel_build.CSRC_DIR))
-    log(f"[build] 2 versions x 2 libraries in {time.perf_counter() - t0:.1f} s")
+    sources = [*others, ("this", kernel_build.CSRC_DIR)]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(lambda d: kernel_build.build(csrc_dir=Path(d[1])), sources))
+    log(f"[build] {len(sources)} versions x 2 libraries in {time.perf_counter() - t0:.1f} s")
     versions = []
-    for vname, src, libs in ((name, other_dir, other), ("this", kernel_build.CSRC_DIR, this)):
+    for (vname, src), libs in zip(sources, built):
         fns, ptxas = {}, {}
         for lib_name, lib in libs.items():
             ptxas.update(cs.ptxas_functions(lib["log"]))
@@ -213,10 +215,10 @@ def time_paths(versions, sample, banded, cfg, params, apply_fn) -> tuple:
 
 
 def summarise(rows, counts, versions) -> dict:
-    """Sum of counted launches x mean time of each forward kernel on each
-    path, by version, and the same over the bound."""
+    """Sum of counted launches x mean time of each kernel on each path, by
+    version, and the same over the bound."""
     out = {}
-    for kernel in ("hop", "band_hop"):
+    for kernel in cs.KERNELS:
         for path, n_by_key in counts.items():
             sel = [r for r in rows if r["kernel"] == kernel and r["key"] in n_by_key]
             if not sel:
@@ -235,15 +237,18 @@ def summarise(rows, counts, versions) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True,
-                    help="NAME=DIR: the kernel sources of another checkout")
+    ap.add_argument("--other", required=True, action="append",
+                    help="NAME=DIR: the kernel sources of another checkout (repeatable)")
     ap.add_argument("--out", default=None, help="file for the JSON of every reading")
     args = ap.parse_args()
     from mswe_gnn_tpu_torch.bench_problem import build_bench_model, build_bench_sample
     from mswe_gnn_tpu_torch.models import prepare_graph
 
     smi = cs.phase_device()
-    versions = build_versions(*parse_pair(args.other))
+    names = [parse_pair(item) for item in args.other]
+    if len({n for n, _ in names} | {"this"}) != len(names) + 1:
+        raise SystemExit("--other names must differ from each other and from 'this'")
+    versions = build_versions(names)
     sample, _ = build_bench_sample()
     banded = band_ops.attach_band_plan(sample)
     cfg, params, apply_fn = build_bench_model(sample, device=torch.device("cuda"))

@@ -205,7 +205,10 @@ def _kernels() -> dict:
             info = lib.mswe_band_hop_fwd_info
             info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             info.restype = ctypes.c_int
-            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info)
+            bwd_info = lib.mswe_band_hop_bwd_info
+            bwd_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+            bwd_info.restype = ctypes.c_int
+            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info, bwd_info=bwd_info)
         return _fns
 
 

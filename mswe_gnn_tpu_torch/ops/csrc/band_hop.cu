@@ -26,8 +26,10 @@
 // from a copy of the parameters in local memory. The forward
 // (hop_common.cuh) loads idx_rel and win together and walks the slots with
 // compile-time numbers, so that ws[d] is a parameter at a constant offset
-// (no stack frame); the rest is the ELL forward's design. The backward
-// still decodes each slot with a runtime number (a 96-byte stack frame).
+// (no stack frame); the rest is the ELL forward's design. The backward is
+// the ELL backward's design under the same addressing, its own slots walked
+// with compile-time numbers too; its register budget and reading batch are
+// its own (hop_common.cuh, BwdTuning).
 
 #include "hop_common.cuh"
 
@@ -60,7 +62,7 @@ extern "C" int mswe_band_hop_launch(const void* state, const void* idx_rel, cons
                        with_gradient, upwind, static_cast<cudaStream_t>(stream));
 }
 
-// The forward's launch over n rows (info[7]: see mswe::info_fwd).
+// The forward's launch over n rows (info[7]: see mswe::kernel_info).
 extern "C" int mswe_band_hop_fwd_info(int dtype, int vectorized, int feat, int n, int* info) {
   return mswe::fwd_info_any<mswe::BandAddr>(dtype, vectorized, feat, n, info);
 }
@@ -78,4 +80,9 @@ extern "C" int mswe_band_hop_bwd_launch(const void* state, const void* idx_rel,
   return mswe::bwd_any(dtype, vectorized, state, state, addr, s_tab, g, out_ptr, out_slots,
                        gs, nullptr, gstate, n, n, feat, degree, with_gradient, upwind,
                        /*same_block=*/1, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's launch over n rows (info[7]: see mswe::kernel_info).
+extern "C" int mswe_band_hop_bwd_info(int dtype, int vectorized, int feat, int n, int* info) {
+  return mswe::bwd_info_any<mswe::BandAddr>(dtype, vectorized, feat, n, n, 1, info);
 }

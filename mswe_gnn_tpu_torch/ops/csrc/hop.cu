@@ -29,8 +29,11 @@
 // 10 us. Its design reads the flux twice (once by the row that owns the
 // slot, once by the row the slot reads) and the state and gradient rows of
 // the reading slots once more, mostly from the 50 MB L2; that is the price
-// of a gather without atomics, and what keeps the result deterministic. It
-// still walks its slots and its reading slots one at a time.
+// of a gather without atomics, and what keeps the result deterministic.
+// Walking its slots and then its reading slots one at a time made a chain
+// of about twenty dependent round trips a row; it now loads them in
+// batches, as the forward does (hop_common.cuh), which cuts the chain to
+// three, and it picks its block size from the row count too.
 
 #include "hop_common.cuh"
 
@@ -46,7 +49,7 @@ extern "C" int mswe_hop_launch(const void* dst_state, const void* src_state,
                        static_cast<cudaStream_t>(stream));
 }
 
-// The forward's launch over n_rows rows (info[7]: see mswe::info_fwd).
+// The forward's launch over n_rows rows (info[7]: see mswe::kernel_info).
 extern "C" int mswe_hop_fwd_info(int dtype, int vectorized, int feat, int n_rows, int* info) {
   return mswe::fwd_info_any<mswe::EllAddr>(dtype, vectorized, feat, n_rows, info);
 }
@@ -63,4 +66,11 @@ extern "C" int mswe_hop_bwd_launch(const void* dst_state, const void* src_state,
   return mswe::bwd_any(dtype, vectorized, dst_state, src_state, addr, s_tab, g, out_ptr,
                        out_slots, gs, g_dst, g_src, n_dst, n_src, feat, degree,
                        with_gradient, upwind, same_block, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's launch (info[7]: see mswe::kernel_info).
+extern "C" int mswe_hop_bwd_info(int dtype, int vectorized, int feat, int n_dst, int n_src,
+                                 int same_block, int* info) {
+  return mswe::bwd_info_any<mswe::EllAddr>(dtype, vectorized, feat, n_dst, n_src, same_block,
+                                           info);
 }

@@ -56,9 +56,10 @@ def reset_launches() -> None:
 
 
 def _kernels() -> dict:
-    """The library's launch functions, typed for ctypes: ``fwd``, ``bwd``
-    and ``fwd_info`` (the forward's block size, grid, registers, local
-    memory and blocks an SM, for a row count)."""
+    """The library's launch functions, typed for ctypes: ``fwd``, ``bwd``,
+    ``fwd_info`` and ``bwd_info`` (a launch's block size, grid, registers,
+    local memory, blocks an SM, lanes a row and shared memory, for a row
+    count; the backward's for ``(Nd, Ns, same_block)``)."""
     with _lock:
         if not _fns:
             lib = kernel_build.load("hop")
@@ -71,7 +72,10 @@ def _kernels() -> dict:
             info = lib.mswe_hop_fwd_info
             info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             info.restype = ctypes.c_int
-            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info)
+            bwd_info = lib.mswe_hop_bwd_info
+            bwd_info.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+            bwd_info.restype = ctypes.c_int
+            _fns.update(fwd=fwd, bwd=bwd, fwd_info=info, bwd_info=bwd_info)
         return _fns
 
 

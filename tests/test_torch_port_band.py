@@ -10,10 +10,12 @@ backward (ops/hop.py) against the JAX package, on the CPU.
   (band_hop.py:212-219) where the port keeps float32 and rounds once.
 - The banded backward against ``jax.grad`` through the custom VJP (its
   Pallas backward in interpret mode), and the ELL backward against
-  ``jax.vjp`` of the JAX slot loop (mswe_gnn_tpu/models/swegnn.py:447-465):
-  float32, rtol 1e-5 / atol 1e-5 for the band (the TPU kernel scatters tile
-  by tile into its accumulator, the port gathers row by row), atol 1e-6
-  for the ELL hop.
+  ``jax.vjp`` of the JAX slot loop (mswe_gnn_tpu/models/swegnn.py:447-465),
+  on random tables and on a skewed one (a source row read by 60 slots,
+  half the rows by none, as the backward kernel's reading-slot batches and
+  their tails need): float32, rtol 1e-5 / atol 1e-5 for the band (the TPU
+  kernel scatters tile by tile into its accumulator, the port gathers row
+  by row), atol 1e-6 for the ELL hop.
 - The hop's autograd repair: on the CPU, autograd through ``hop`` (the
   plain version under PyTorch's autograd) and through ``HopFunction``'s
   plain forward and backward give the same gradients.
@@ -193,7 +195,9 @@ def jax_slot_hop(dst, src, src_tab, s_tab, with_gradient, upwind):
     return agg
 
 
-def ell_problem(seed, n_dst, n_src, d, feat, same_block):
+def ell_problem(seed, n_dst, n_src, d, feat, same_block, skew=False):
+    """``skew``: the slots read the first half of the source rows only, and
+    slot 0 of the first 80 rows reads source row 1."""
     rng = np.random.default_rng(seed)
     dst = rng.normal(size=(n_dst, feat)).astype(np.float32)
     dst[rng.random(n_dst) < 0.4] = 0.0
@@ -201,6 +205,9 @@ def ell_problem(seed, n_dst, n_src, d, feat, same_block):
     if not same_block:
         src[rng.random(n_src) < 0.3] = 0.0
     tab = rng.integers(0, n_src, (n_dst, d)).astype(np.int32)
+    if skew:
+        tab //= 2
+        tab[:80, 0] = 1
     mask = (rng.random((n_dst, d)) < 0.75).astype(np.float32)
     s_tab = rng.normal(size=(n_dst, d, feat)).astype(np.float32) * mask[:, :, None]
     g = rng.normal(size=(n_dst, feat)).astype(np.float32)
@@ -210,8 +217,26 @@ def ell_problem(seed, n_dst, n_src, d, feat, same_block):
 @pytest.mark.parametrize("with_gradient,upwind", MODES)
 @pytest.mark.parametrize("same_block", [True, False], ids=["same-block", "un-pool"])
 def test_ell_backward_matches_jax_vjp(same_block, with_gradient, upwind):
-    dst, src, tab, s_tab, mask, g = ell_problem(3, 200, 200 if same_block else 57, 4, 16,
-                                                same_block)
+    check_ell_backward_against_vjp(
+        ell_problem(3, 200, 200 if same_block else 57, 4, 16, same_block), same_block,
+        with_gradient, upwind)
+
+
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("same_block", [True, False], ids=["same-block", "un-pool"])
+def test_ell_backward_on_a_skewed_table_matches_jax_vjp(same_block, with_gradient, upwind):
+    problem = ell_problem(4, 240, 240 if same_block else 61, 4, 16, same_block, skew=True)
+    tab, mask = problem[2], problem[4]
+    counts = np.bincount(tab[mask > 0], minlength=len(problem[1]))
+    assert counts.max() >= 40 and (counts == 0).sum() >= len(problem[1]) // 3
+    check_ell_backward_against_vjp(problem, same_block, with_gradient, upwind)
+
+
+def check_ell_backward_against_vjp(problem, same_block, with_gradient, upwind):
+    """``hop_backward`` on the CPU (its plain version), with the out-slot
+    table with and without the masked slots, against ``jax.vjp`` of the
+    JAX slot loop."""
+    dst, src, tab, s_tab, mask, g = problem
     if same_block:
         _, pull = jax.vjp(lambda st, s: jax_slot_hop(st, st, tab, s, with_gradient, upwind),
                           jnp.asarray(dst), jnp.asarray(s_tab))

@@ -9,10 +9,12 @@ Run on a machine with one NVIDIA GPU, from the repository root:
 
 Tolerances: the kernels add the same float32 terms in the same order as
 their plain versions and round once, so they agree to the bit (NaN where
-the plain version has NaN). The forward is held so at every slot count of
-its batches (D = 1..16, tails that are not a multiple of the batch), in the
-vector (F = 64) and scalar (F = 20) layouts, on grids smaller than the SM
-count, and with out-of-range indices. The model on the card against the
+the plain version has NaN). Forward and backward are held so at every
+slot count of their batches (D = 1..16, tails that are not a multiple of
+the batch), in the vector (F = 64) and scalar (F = 20) layouts, on grids
+smaller than the SM count; the forward with out-of-range indices, the
+backward also on skewed out-slot tables (a source row read by 40 slots and
+more, many read by none: reading-slot batches and their tails). The model on the card against the
 CPU: rtol 1e-5, atol 1e-4 in float32 —
 cuBLAS sums the matmuls in another order. A train step (loss and
 gradients) on the card against the CPU: the loss within rtol 1e-5, every
@@ -118,14 +120,11 @@ def test_rollout_on_the_card_matches_the_cpu(cuda, small_problem):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_gradient,upwind", MODES)
-@pytest.mark.parametrize("n_dst,n_src,feat,same_block", [
-    (1000, 1000, 64, True), (517, 130, 64, False), (333, 333, 20, True)])
-def test_backward_kernel_matches_plain_version(cuda, dtype, with_gradient, upwind,
-                                               n_dst, n_src, feat, same_block):
-    args = make_hop_inputs(1, n_dst, n_src, 4, feat, dtype, same_block, cuda)
-    table = hop_ops.out_slot_table(args[2], args[1].shape[0], slot_mask_of(args[3]))
+def check_backward(args, with_gradient, upwind, masked_table=True):
+    """The ELL backward kernel against its plain version, bit for bit, with
+    one launch counted."""
+    table = hop_ops.out_slot_table(args[2], args[1].shape[0],
+                                   slot_mask_of(args[3]) if masked_table else None)
     g = upstream(2, args[0])
     before = hop_ops.bwd_launches
     got = hop_ops.hop_backward(*args, g, *table, with_gradient, upwind)
@@ -135,6 +134,32 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, with_gradient, upwin
         assert (a is None) == (b is None)
         if a is not None:
             assert_bit_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("degree", DEGREES)
+@pytest.mark.parametrize("n_dst,n_src,feat,same_block", [
+    (1000, 1000, 64, True), (517, 130, 64, False), (333, 333, 20, True),
+    (100, 100, 64, True), (200, 37, 20, False)])      # the last two: fewer blocks than SMs
+def test_backward_kernel_matches_plain_version(cuda, dtype, with_gradient, upwind, degree,
+                                               n_dst, n_src, feat, same_block):
+    args = make_hop_inputs(degree, n_dst, n_src, degree, feat, dtype, same_block, cuda)
+    check_backward(args, with_gradient, upwind, masked_table=degree % 2 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("feat", [64, 20])
+@pytest.mark.parametrize("n_dst,n_src,same_block", [(600, 600, True), (600, 97, False),
+                                                    (700, 1500, False)])
+def test_backward_kernel_on_a_skewed_out_slot_table(cuda, dtype, with_gradient, upwind, feat,
+                                                    n_dst, n_src, same_block):
+    """Source row 1 is read by 60 slots and more (15 reading batches and a
+    tail), half the source rows by none; the last shape has more source
+    rows than destination rows, which only read."""
+    args = make_hop_inputs(3, n_dst, n_src, 4, feat, dtype, same_block, cuda, skew=True)
+    check_backward(args, with_gradient, upwind)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -158,6 +183,26 @@ def test_band_kernels_match_plain_versions(cuda, dtype, with_gradient, upwind, t
     got = band_ops.band_hop_backward(state, s, idx_rel, win, g, *table, **kw)
     want = band_ops.band_hop_backward_reference(state, s, idx_rel, win, g, *table, **kw)
     assert (band_ops.launches, band_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        assert_bit_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("degree,feat", [(4, 64), (3, 20), (16, 64)])
+def test_band_backward_on_a_skewed_out_slot_table(cuda, dtype, with_gradient, upwind, degree,
+                                                  feat):
+    """Slots read even rows only, and slot 0 of 80 rows reads the middle row."""
+    plan, mask = banded_problem(6, 1024, degree, 40, feat, skew=True)
+    state, s, idx_rel, win = band_inputs(7, plan, mask, feat, dtype)
+    kw = dict(ws=plan.ws, we=plan.we, with_gradient=with_gradient, upwind=upwind)
+    src = band_ops.band_sources(idx_rel, win, plan.ws, plan.we)
+    table = hop_ops.out_slot_table(src, len(src), mask.to(cuda))
+    g = upstream(8, state)
+    before = band_ops.bwd_launches
+    got = band_ops.band_hop_backward(state, s, idx_rel, win, g, *table, **kw)
+    want = band_ops.band_hop_backward_reference(state, s, idx_rel, win, g, *table, **kw)
+    assert band_ops.bwd_launches == before + 1
     for a, b in zip(got, want):
         assert_bit_equal(a, b)
 

@@ -14,6 +14,7 @@ import chip_smoke as cs
 import kernel_ab
 from mswe_gnn_tpu_torch.bench_problem import build_bench_model, build_bench_sample
 from mswe_gnn_tpu_torch.models import prepare_graph
+from mswe_gnn_tpu_torch.ops import band_hop as band_ops
 from mswe_gnn_tpu_torch.ops import build as kernel_build
 from mswe_gnn_tpu_torch.ops import hop as hop_ops
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
@@ -30,6 +31,41 @@ ptxas info    : Function properties for {BWD}
     96 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 60 registers, used 0 barriers, 480 bytes cmem[0]
 """
+
+
+def test_build_check_rejects_a_backward_with_a_stack_frame():
+    """The smoke's build check holds the backward instantiations, as the
+    forward ones, to no stack frame and no spills, and to their count."""
+    functions = cs.ptxas_functions(PTXAS_LOG)
+    with pytest.raises(AssertionError, match=r"hop_bwd_kernel instantiations: 1 found.*"
+                                             r"hop_bwd_kernel<f32, V=4, CPL=2, BandAddr>"):
+        cs.check_instantiations(functions, expected=1)
+    clean = cs.ptxas_functions(PTXAS_LOG.replace("96 bytes stack frame, 8 bytes spill stores, "
+                                                 "4 bytes spill loads",
+                                                 "0 bytes stack frame, 0 bytes spill stores, "
+                                                 "0 bytes spill loads"))
+    cs.check_instantiations(clean, expected=1)
+    with pytest.raises(AssertionError, match="hop_bwd_kernel instantiations: 0 found"):
+        cs.check_instantiations({k: v for k, v in clean.items() if "fwd" in k}, expected=1)
+    with pytest.raises(AssertionError, match="hop_fwd_kernel instantiations: 1 found"):
+        cs.check_instantiations(clean)                                # 24 of each expected
+
+
+def test_skewed_problems_have_long_and_empty_reading_lists():
+    """The skewed inputs of the smoke and the GPU tests give the backward's
+    reading-slot batches a list of at least 40 slots (ten batches and more)
+    and rows that no slot reads."""
+    for same, n_src in ((True, 600), (False, 97)):
+        dst, src, tab, s = cs.make_hop_inputs(5, 600, n_src, 4, 64, torch.float32, same,
+                                              device="cpu", skew=True)
+        ptr, _ = hop_ops.out_slot_table(tab, src.shape[0], cs.slot_mask_of(s))
+        counts = ptr[1:] - ptr[:-1]
+        assert int(counts.max()) >= 40 and int((counts == 0).sum()) >= n_src // 3
+    plan, mask = cs.banded_problem(5, 1024, 4, 40, 64, skew=True)
+    src = band_ops.band_sources(plan.idx_rel, plan.win, plan.ws, plan.we)
+    ptr, _ = hop_ops.out_slot_table(src, len(src), mask)
+    counts = ptr[1:] - ptr[:-1]
+    assert int(counts.max()) >= 40 and int((counts == 0).sum()) >= 1024 // 3
 
 
 def test_ptxas_functions_reads_every_kernel():
