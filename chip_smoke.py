@@ -31,14 +31,35 @@ Phases, each printing its own lines:
    hops, in bf16 and in float32; a warm-up step (its launches counted by
    shape too) and 3 timed ones, the loss finite and falling; one
    ``eval_step`` over the 47-step graph; peak device memory.
-6. timing  -- every kernel at the bench shapes, on the bench graph's own
-   tables and plans: kernel, L2 flushed, plain version, bound, the launch
+6. timing  -- runs last: every kernel at the bench shapes, on the bench
+   graph's own tables and plans, and the ELL hop at the union shapes of
+   phases 7 and 8 on the unions' own tables (forward and backward at b=4,
+   forward at b=20): kernel, L2 flushed, plain version, bound, the launch
    floor of the harness, each launch (block, grid, registers, warps an
-   SM), and the launches of each shape on each path as phases 4 and 5
-   counted them, with their sum of launches x time.
+   SM), and the launches of each shape on each path as phases 4, 5, 7 and
+   8 counted them, with their sum of launches x time.
+7. batched serving -- the 47-step rollout on concat unions of 4 and of 20
+   bench graphs (``concat_graphs``, no band plan): launches by shape held
+   against the tiled spec's, the output checked as in phase 4, every
+   graph's step 0 held against the batch-1 rollout's within phase 4's
+   limit, the worst per-graph difference over the 47 steps, and the
+   seconds a simulation at batch 1, 4 and 20 (median of 3 after a warm-up,
+   CUDA events).
+8. batched train -- the train step of phase 5 on a union of 4 copies of the
+   banded graph (all ELL, as in JAX): launches by shape, gradients against
+   the plain hops at phase 5's limits, the union against one copy in
+   float32 (the same loss and gradients), what the out-slot tables cost
+   ``prepare_graph``, timed steps, and ``tune_batch_size`` over (1, 2, 4)
+   with the peak device memory.
+9. trainer -- ``Trainer`` at demo_small's width on a small synthetic set, at
+   batch 4 with a ragged tail, batches assembled on the card, watch norms
+   and checkpoints in a temporary directory: fit 2 epochs, save, resume
+   into a new Trainer (parameters and optimizer state bit-equal), fit one
+   more epoch.
 
-Then one JSON line describing every kernel, the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
+Then one JSON line describing every kernel (``launches``: its launches on
+every path driven, each path counted from 0; ``launches_by_path`` by path),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 exits non-zero without printing a result. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -570,6 +591,41 @@ def bench_hop_cases(cache, spec, seed=1000, device="cuda") -> list:
     return cases
 
 
+def timing_case(kernel, shape, nd, ns, run, plain, work, **extra) -> dict:
+    """One row of ``timing_cases``: the kernel, its shape and launch key
+    ``(kernel, Nd, Ns)``, the wrapper and the plain version as calls, and
+    the bound of ``work = (bytes, ops)``."""
+    ms, by = bound(*work)
+    return dict(kernel=kernel, shape=shape, key=(kernel, nd, ns), run=run, plain=plain,
+                bound_ms=ms, bound_by=by, bytes=work[0], ops=work[1], **extra)
+
+
+def ell_timing_cases(cache, spec, backward_shapes, label="") -> list:
+    """The ELL forward on the tables of a graph's cache (``bench_hop_cases``)
+    and, at each ``(Nd, Ns)`` of ``backward_shapes``, the ELL backward on
+    the same inputs, bf16; ``label`` prefixes each shape's name."""
+    cases = []
+    for name, args, grad, same in bench_hop_cases(cache, spec):
+        nd, ns = args[0].shape[0], args[1].shape[0]
+        cases.append(timing_case(
+            "hop", label + name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
+            partial(hop_ops.hop_reference, *args, with_gradient=grad),
+            hop_work(nd, ns, DEGREE, FEAT, 2, same, 4 if grad else 3),
+            launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd)))
+        if (nd, ns) in backward_shapes:
+            table = hop_ops.out_slot_table(args[2], ns, slot_mask_of(args[3]))
+            g = upstream(3100 + nd, args[0])
+            cases.append(timing_case(
+                "hop_bwd", label + name, nd, ns,
+                partial(hop_ops.hop_backward, *args, g, *table, grad),
+                partial(hop_ops.hop_backward_reference, *args, g, *table, grad),
+                hop_bwd_work(nd, ns, DEGREE, FEAT, 2, same, grad),
+                table_bytes=table_bytes(table),
+                launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd, "bwd",
+                                   (ns, int(same)))))
+    return cases
+
+
 def timing_cases(banded, cache, cfg) -> list:
     """Every kernel at the bench shapes, bf16, as ``phase_timing`` and
     ``kernel_ab.py`` time them: the ELL forward on the rollout's own tables
@@ -583,29 +639,7 @@ def timing_cases(banded, cache, cfg) -> list:
     spec = banded.spec
     train_ell = {(nd, ns) for kernel, nd, ns in hops_per_step(cfg, spec, banded.band_meta)
                  if kernel == "hop"}
-    cases = []
-
-    def case(kernel, shape, nd, ns, run, plain, work, **extra):
-        ms, by = bound(*work)
-        cases.append(dict(kernel=kernel, shape=shape, key=(kernel, nd, ns), run=run,
-                          plain=plain, bound_ms=ms, bound_by=by, bytes=work[0], ops=work[1],
-                          **extra))
-
-    for name, args, grad, same in bench_hop_cases(cache, spec):
-        nd, ns = args[0].shape[0], args[1].shape[0]
-        case("hop", name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
-             partial(hop_ops.hop_reference, *args, with_gradient=grad),
-             hop_work(nd, ns, DEGREE, FEAT, 2, same, 4 if grad else 3),
-             launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd))
-        if (nd, ns) in train_ell:
-            table = hop_ops.out_slot_table(args[2], ns, slot_mask_of(args[3]))
-            g = upstream(3100 + nd, args[0])
-            case("hop_bwd", name, nd, ns, partial(hop_ops.hop_backward, *args, g, *table, grad),
-                 partial(hop_ops.hop_backward_reference, *args, g, *table, grad),
-                 hop_bwd_work(nd, ns, DEGREE, FEAT, 2, same, grad),
-                 table_bytes=table_bytes(table),
-                 launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd, "bwd",
-                                    (ns, int(same))))
+    cases = ell_timing_cases(cache, spec, train_ell)
     for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
         if plan is None:
             continue
@@ -620,16 +654,17 @@ def timing_cases(banded, cache, cfg) -> list:
         args, kw = (state, s, idx_rel, win), dict(ws=ws, we=we)
         shape = f"scale {i} N={n} D={DEGREE} F={FEAT} ws={ws} we={we} bf16 bench plan"
         nbytes, ops = hop_work(n, n, DEGREE, FEAT, 2, True, 4)
-        case("band_hop", shape, n, n, partial(band_ops.band_hop, *args, **kw),
-             partial(band_ops.band_hop_reference, *args, **kw),
-             (nbytes + win.numel() * 4, ops),
-             launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n))
+        cases.append(timing_case(
+            "band_hop", shape, n, n, partial(band_ops.band_hop, *args, **kw),
+            partial(band_ops.band_hop_reference, *args, **kw), (nbytes + win.numel() * 4, ops),
+            launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n)))
         nbytes, ops = hop_bwd_work(n, n, DEGREE, FEAT, 2, True, True)
-        case("band_hop_bwd", shape, n, n,
-             partial(band_ops.band_hop_backward, *args, g, *table, **kw),
-             partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
-             (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table),
-             launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n, "bwd"))
+        cases.append(timing_case(
+            "band_hop_bwd", shape, n, n,
+            partial(band_ops.band_hop_backward, *args, g, *table, **kw),
+            partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
+            (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table),
+            launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n, "bwd")))
     return cases
 
 
@@ -649,6 +684,35 @@ def plain_hops():
     with mock.patch.object(swegnn, "hop", hop_plain), \
             mock.patch.object(swegnn, "band_hop", band_plain):
         yield
+
+
+def timed_rollouts(apply_fn, params, cfg, graph, steps, device, reps=3):
+    """-> (median ms, CUDA-event ms, host ms) of ``reps`` rollouts."""
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    event_ms, host_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        rollout(apply_fn, params, cfg, graph, steps, device=device)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+    return statistics.median(event_ms), event_ms, host_ms
+
+
+def check_rollout(what, preds, graph, steps) -> None:
+    """Raises unless ``preds`` is ``[N, 2, steps]`` for the graph's N rows,
+    finite, non-negative and zero on the padded rows."""
+    if tuple(preds.shape) != (graph.num_nodes, 2, steps):
+        raise AssertionError(f"{what}: shape {tuple(preds.shape)}")
+    if not bool(torch.isfinite(preds).all()) or bool((preds < 0).any()):
+        raise AssertionError(f"{what}: predictions are not finite and non-negative")
+    if bool(preds[graph.node_mask == 0].ne(0).any()):
+        raise AssertionError(f"{what}: padded rows are not zero")
 
 
 def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
@@ -675,13 +739,7 @@ def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
     torch.cuda.synchronize()
     counts = read_launches()
     hold_launches("serving", f"the {steps}-step rollout", counts, expected)
-    if tuple(preds.shape) != (spec.num_nodes, 2, steps):
-        raise AssertionError(f"rollout shape {tuple(preds.shape)}")
-    if not bool(torch.isfinite(preds).all()) or bool((preds < 0).any()):
-        raise AssertionError("rollout predictions are not finite and non-negative")
-    padded = graph.node_mask == 0
-    if bool(preds[padded].ne(0).any()):
-        raise AssertionError("padded rows of the rollout are not zero")
+    check_rollout("the rollout", preds, graph, steps)
     wet = float((preds[:, 0] > 0).float().mean())
     log(f"[serving] predictions [{', '.join(map(str, preds.shape))}] finite, >= 0, "
         f"padded rows 0; wet share {wet:.3f}, max {float(preds.max()):.4f}; "
@@ -706,25 +764,14 @@ def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
         raise AssertionError("step 0 through the kernel disagrees with the plain hop")
 
     # three timed rollouts after the counted one
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    event_ms, host_ms = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        start.record()
-        rollout(apply_fn, params, cfg, graph, steps, device=device)
-        end.record()
-        end.synchronize()
-        event_ms.append(start.elapsed_time(end))
-        host_ms.append((time.perf_counter() - h0) * 1e3)
-    rollout_ms = statistics.median(event_ms)
+    rollout_ms, event_ms, host_ms = timed_rollouts(apply_fn, params, cfg, graph, steps, device)
     log(f"[serving] {steps}-step rollout: {rollout_ms:.1f} ms median of 3 "
         f"(CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
         f"{', '.join(f'{t:.1f}' for t in host_ms)} ms)")
 
     with torch.no_grad():            # the rollout's tables, for the kernel timings
         cache = prepare_graph(params, cfg, graph).ell_cache
-    return {"launches": counts, "rollout_ms": rollout_ms, "cache": cache}
+    return {"launches": counts, "rollout_ms": rollout_ms, "cache": cache, "preds": preds}
 
 
 def processor_scales(cfg):
@@ -807,64 +854,58 @@ def compare_grads(loss_k, grads_k, loss_p, grads_p) -> dict:
             "leaves_within": all(bool(d <= 1e-4 * m + 1e-12) for d, m in diffs)}
 
 
-def phase_train(banded, cfg, params, apply_fn) -> dict:
-    from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
-    from mswe_gnn_tpu_torch import tree_leaves
-    from mswe_gnn_tpu_torch.training.train import eval_step, loss_and_grads
+def hold_grads(phase, args, through_kernels):
+    """The loss and gradients of ``loss_and_grads(*args)`` through the
+    kernels (``through_kernels``, in the config's bf16) against those
+    through the plain hops, in bf16 and in float32 -> ``(bf16, f32, (loss,
+    grads) through the kernels in float32)``; raises past the limits."""
+    from mswe_gnn_tpu_torch.training.train import loss_and_grads
 
-    device = torch.device("cuda")
-    log(f"[train] band_meta {banded.band_meta}")
-    step = build_bench_train_step(banded, cfg, params, apply_fn, device=device)
-    expected = train_launches(cfg, banded.spec, banded.band_meta, step.rollout_steps,
-                              step.opts.remat)
-
-    # the gradients of the first step, through the kernels and through the
-    # plain hops (autograd of the plain versions)
-    args = (apply_fn, step.params, cfg, step.graph, step.rollout_steps, step.opts, True)
-    loss_k, grads_k = loss_and_grads(*args)
-    leaves = tree_leaves(grads_k)
-    bad = [i for i, g in enumerate(leaves)
-           if not bool(torch.isfinite(g).all()) or not bool(g.ne(0).any())]
-    if bad or not math.isfinite(float(loss_k)):
-        raise AssertionError(f"loss {float(loss_k)}; gradient leaves not finite or all "
-                             f"zero: {bad} of {len(leaves)}")
-    log(f"[train] loss {float(loss_k):.6f}; all {len(leaves)} gradient leaves finite "
-        f"and not all zero; global grad norm {float(flat(grads_k).norm()):.4e}")
-
-    # bf16, as trained: the kernels sum a state gradient in float32 and round
-    # once, autograd of the plain hops rounds at other points, so the limits
-    # sit a few times above the readings of earlier runs (L2 4.7e-4, worst
-    # leaf 8e-2). float32: every hop agrees with its plain version to the
-    # bit and only the order of the gradient sums differs, so every leaf is
-    # held to 1e-4 of its largest value (the CPU parity tests' limit
-    # against JAX); this pass shows that the bf16 gaps are rounding, not a
-    # fault in the autograd Functions.
+    apply_fn, params, cfg, graph, rollout_steps, opts, multiscale = args
     with plain_hops():
         loss_p, grads_p = loss_and_grads(*args)
-    bf16 = compare_grads(loss_k, grads_k, loss_p, grads_p)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    args32 = (apply_fn, step.params, cfg32, step.graph, step.rollout_steps, step.opts, True)
-    loss_k32, grads_k32 = loss_and_grads(*args32)
+    bf16 = compare_grads(*through_kernels, loss_p, grads_p)
+    args32 = (apply_fn, params, dataclasses.replace(cfg, compute_dtype="float32"), graph,
+              rollout_steps, opts, multiscale)
+    kernels32 = loss_and_grads(*args32)
     with plain_hops():
         loss_p32, grads_p32 = loss_and_grads(*args32)
-    f32 = compare_grads(loss_k32, grads_k32, loss_p32, grads_p32)
+    f32 = compare_grads(*kernels32, loss_p32, grads_p32)
     for name, r, limits in (("bf16", bf16, "loss 1e-5, cosine >= 0.99999, L2 <= 3e-3, "
                                            "worst leaf <= 0.25"),
                             ("float32", f32, "loss 1e-6, every leaf max|diff| <= "
                                              "1e-4 max|leaf| + 1e-12")):
-        log(f"[train] kernels vs plain hops, {name}: loss rel diff {r['loss_rel']:.3e}; "
+        log(f"[{phase}] kernels vs plain hops, {name}: loss rel diff {r['loss_rel']:.3e}; "
             f"gradient cosine {r['cos']:.8f}, relative L2 diff {r['rel']:.3e}, worst leaf "
             f"max|diff|/max|leaf| {r['worst_leaf']:.3e} (limits: {limits})")
     if not (bf16["loss_rel"] <= 1e-5 and bf16["cos"] >= 0.99999 and bf16["rel"] <= 3e-3
             and bf16["worst_leaf"] <= 0.25):
-        raise AssertionError("bf16 train-step gradients through the kernels disagree with "
-                             "the plain hops")
+        raise AssertionError(f"[{phase}] bf16 train-step gradients through the kernels "
+                             "disagree with the plain hops")
     if not (f32["loss_rel"] <= 1e-6 and f32["leaves_within"]):
-        raise AssertionError("float32 train-step gradients through the kernels disagree "
-                             "with the plain hops")
+        raise AssertionError(f"[{phase}] float32 train-step gradients through the kernels "
+                             "disagree with the plain hops")
+    return bf16, f32, kernels32
 
-    # a warm-up step, its launches counted, and 3 timed ones (the loss of a
-    # step is taken before its update)
+
+def check_first_grads(phase, loss, grads) -> None:
+    from mswe_gnn_tpu_torch import tree_leaves
+    leaves = tree_leaves(grads)
+    bad = [i for i, g in enumerate(leaves)
+           if not bool(torch.isfinite(g).all()) or not bool(g.ne(0).any())]
+    if bad or not math.isfinite(float(loss)):
+        raise AssertionError(f"loss {float(loss)}; gradient leaves not finite or all "
+                             f"zero: {bad} of {len(leaves)}")
+    log(f"[{phase}] loss {float(loss):.6f}; all {len(leaves)} gradient leaves finite "
+        f"and not all zero; global grad norm {float(flat(grads).norm()):.4e}")
+
+
+def timed_train_steps(phase, step, expected):
+    """A warm-up step with its launches counted and held against
+    ``expected``, then 3 timed ones (CUDA events and the host clock) ->
+    (launches, median ms, losses, peak GiB); raises unless the loss is
+    finite and falls over the 4 steps (the loss of a step is taken before
+    its update)."""
     torch.cuda.reset_peak_memory_stats()
     losses, event_ms, host_ms = [], [], []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -880,19 +921,49 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
         losses.append(float(loss))
         if i == 0:
             launches = read_launches()
-            hold_launches("train", f"one train step (remat={step.opts.remat})", launches,
+            hold_launches(phase, f"one train step (remat={step.opts.remat})", launches,
                           expected)
         else:
             event_ms.append(start.elapsed_time(end))
             host_ms.append((time.perf_counter() - h0) * 1e3)
     step_ms = statistics.median(event_ms)
-    log(f"[train] 6-step pushforward train step (remat, batch 1, bf16): {step_ms:.1f} ms "
-        f"median of 3 (CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms; host "
-        f"clock {', '.join(f'{t:.1f}' for t in host_ms)} ms); losses "
+    log(f"[{phase}] 6-step pushforward train step (remat, batch {step.opts.batch_size}, "
+        f"bf16): {step_ms:.1f} ms median of 3 (CUDA events "
+        f"{', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
+        f"{', '.join(f'{t:.1f}' for t in host_ms)} ms); losses "
         f"{', '.join(f'{v:.6f}' for v in losses)}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train loss not finite and falling over 4 steps: {losses}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return launches, step_ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_train(banded, cfg, params, apply_fn) -> dict:
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
+    from mswe_gnn_tpu_torch.training.train import eval_step, loss_and_grads
+
+    device = torch.device("cuda")
+    log(f"[train] band_meta {banded.band_meta}")
+    step = build_bench_train_step(banded, cfg, params, apply_fn, device=device)
+    expected = train_launches(cfg, banded.spec, banded.band_meta, step.rollout_steps,
+                              step.opts.remat)
+
+    # the gradients of the first step, through the kernels and through the
+    # plain hops (autograd of the plain versions)
+    args = (apply_fn, step.params, cfg, step.graph, step.rollout_steps, step.opts, True)
+    loss_k, grads_k = loss_and_grads(*args)
+    check_first_grads("train", loss_k, grads_k)
+
+    # bf16, as trained: the kernels sum a state gradient in float32 and round
+    # once, autograd of the plain hops rounds at other points, so the limits
+    # sit a few times above the readings of earlier runs (L2 4.7e-4, worst
+    # leaf 8e-2). float32: every hop agrees with its plain version to the
+    # bit and only the order of the gradient sums differs, so every leaf is
+    # held to 1e-4 of its largest value (the CPU parity tests' limit
+    # against JAX); this pass shows that the bf16 gaps are rounding, not a
+    # fault in the autograd Functions.
+    bf16, f32, _ = hold_grads("train", args, (loss_k, grads_k))
+
+    launches, step_ms, losses, peak = timed_train_steps("train", step, expected)
 
     steps = step.graph.y.shape[-1]
     t0 = time.perf_counter()
@@ -908,20 +979,248 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
             "grads_bf16": bf16, "grads_f32": f32, "peak_gib": peak, "eval": metrics}
 
 
+# ---------------------------------------------------------------- phase 7
+SERVING_BATCHES = (4, 20)
+TRAIN_BATCH = 4
+
+
+def graph_rows(spec, b, g, device):
+    """The rows of graph ``g`` in the union of ``b`` graphs of ``spec``, in
+    that graph's own row order."""
+    tiled = spec.tile(b)
+    return torch.cat([torch.arange(tiled.node_ptr[s] + g * n, tiled.node_ptr[s] + (g + 1) * n)
+                      for s, n in enumerate(spec.node_counts)]).to(device)
+
+
+def phase_batched_serving(sample, cfg, params, apply_fn, serving) -> dict:
+    """The 47-step rollout on concat unions of ``SERVING_BATCHES`` copies of
+    the bench graph: launches by shape against the tiled spec's, the output
+    checked, every graph's step 0 against the batch-1 rollout's, and the
+    seconds a simulation."""
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.models import prepare_graph
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+
+    device = torch.device("cuda")
+    spec, steps = sample.spec, sample.y.shape[-1]
+    single = serving["preds"]
+    # phase 4's limit: two bf16 ulps of the largest prediction
+    limit = 2 * 2.0 ** -8 * float(single[..., 0].abs().max())
+    out = {"launches": {}, "caches": {}, "s_per_sim": {1: serving["rollout_ms"] / 1e3}}
+    for b in SERVING_BATCHES:
+        t0 = time.perf_counter()
+        union = concat_graphs([sample] * b)
+        build_s = time.perf_counter() - t0
+        if union.num_graphs != b or union.band_plan is not None:
+            raise AssertionError(f"union of {b}: num_graphs {union.num_graphs}")
+        graph = union.to(device)
+        expected = rollout_launches(cfg, spec.tile(b), steps)
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        preds = rollout(apply_fn, params, cfg, graph, steps, device=device)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        hold_launches("batched serving", f"the {steps}-step rollout of a union of {b}", counts,
+                      expected)
+        check_rollout(f"the rollout of a union of {b}", preds, graph, steps)
+        err0 = err_all = 0.0
+        for g in range(b):
+            mine = preds.index_select(0, graph_rows(spec, b, g, device))
+            err0 = max(err0, float((mine[..., 0] - single[..., 0]).abs().max()))
+            err_all = max(err_all, float((mine - single).abs().max()))
+        log(f"[batched serving] union of {b} ({build_s:.1f} s to build on the host): "
+            f"predictions [{', '.join(map(str, preds.shape))}] finite, >= 0, padded rows 0; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every "
+            f"graph's step 0 vs the batch-1 rollout: max|err| {err0:.3e} (limit {limit:.3e}); "
+            f"worst per-graph difference over the {steps} steps {err_all:.3e}")
+        if not err0 <= limit:
+            raise AssertionError(f"union of {b}: a graph's step 0 disagrees with batch 1")
+        del preds
+        ms, event_ms, host_ms = timed_rollouts(apply_fn, params, cfg, graph, steps, device)
+        out["s_per_sim"][b] = ms / 1e3 / b
+        log(f"[batched serving] union of {b}: {steps}-step rollout {ms:.1f} ms median of 3 "
+            f"(CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
+            f"{', '.join(f'{t:.1f}' for t in host_ms)} ms) -> {out['s_per_sim'][b]:.4f} s "
+            f"a simulation")
+        out["launches"][b] = counts
+        with torch.no_grad():       # the union's tables, for the kernel timings
+            out["caches"][b] = (prepare_graph(params, cfg, graph).ell_cache, graph.spec)
+    log("[batched serving] seconds a simulation by batch: "
+        + ", ".join(f"{b}: {v:.4f}" for b, v in out["s_per_sim"].items()))
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_batched_train(banded, sample, cfg, params, apply_fn) -> dict:
+    """The bench train step on a union of ``TRAIN_BATCH`` copies of the
+    banded sample (all ELL, as in JAX): launches, gradients against the
+    plain hops, the union against one copy in float32, the out-slot tables'
+    cost, timed steps, and ``tune_batch_size`` over (1, 2, 4)."""
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
+    from mswe_gnn_tpu_torch.models import prepare_graph
+    from mswe_gnn_tpu_torch.training.train import loss_and_grads, tune_batch_size
+
+    device = torch.device("cuda")
+    b = TRAIN_BATCH
+    step = build_bench_train_step(banded, cfg, params, apply_fn, device=device, batch=b)
+    union = step.graph
+    if union.num_graphs != b or union.band_plan is not None:
+        raise AssertionError("the batched train step's union must be all ELL")
+    expected = train_launches(cfg, union.spec, union.band_meta, step.rollout_steps,
+                              step.opts.remat)
+    log(f"[batched train] union of {b}: nodes {list(union.spec.node_counts)}; launches the "
+        f"config gives a step: {by_kernel(expected)}")
+
+    args = (apply_fn, step.params, cfg, union, step.rollout_steps, step.opts, True)
+    loss_k, grads_k = loss_and_grads(*args)
+    check_first_grads("batched train", loss_k, grads_k)
+    bf16, f32, (loss32, grads32) = hold_grads("batched train", args, (loss_k, grads_k))
+
+    # in float32 the union of b identical copies has the loss and the
+    # gradients of one copy (concat-then-mean)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one = loss_and_grads(apply_fn, step.params, cfg32, sample.to(device), step.rollout_steps,
+                         step.opts, True)
+    copy = compare_grads(loss32, grads32, *one)
+    log(f"[batched train] float32 union of {b} copies vs one copy: loss rel diff "
+        f"{copy['loss_rel']:.3e} (limit 1e-5), worst leaf max|diff|/max|leaf| "
+        f"{copy['worst_leaf']:.3e} (limit 1e-4)")
+    if not (copy["loss_rel"] <= 1e-5 and copy["leaves_within"]):
+        raise AssertionError(f"the union of {b} copies disagrees with one copy")
+
+    # what the out-slot tables (built with gradients on) add to prepare_graph
+    def prepare():
+        prepare_graph(step.params, cfg, union)
+
+    with torch.enable_grad():
+        grad_ms = event_time_ms(prepare, 3)
+    with torch.no_grad():
+        nograd_ms = event_time_ms(prepare, 3)
+    log(f"[batched train] prepare_graph on the union of {b}: {grad_ms:.2f} ms with gradients "
+        f"on (out-slot tables built), {nograd_ms:.2f} ms without; the tables cost "
+        f"{grad_ms - nograd_ms:.2f} ms a train step (mean of 3 after 3, CUDA events)")
+
+    launches, step_ms, losses, peak = timed_train_steps("batched train", step, expected)
+    log(f"[batched train] {b / step_ms * 1e3:.3f} simulations/s; peak device memory of the 4 "
+        f"steps {peak:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    best, rates = tune_batch_size(apply_fn, cfg, params, [banded] * b, step.opts,
+                                  candidates=(1, 2, 4), device=device)
+    tune_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[batched train] tune_batch_size (1, 2, 4), 6-step pushforward: simulations/s "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rates.items())
+        + f"; fastest {best}; peak device memory {tune_peak:.2f} GiB")
+    if sorted(rates) != [1, 2, 4]:
+        raise AssertionError(f"tune_batch_size stopped early: {rates}")
+    with torch.no_grad():           # the union's tables, for the kernel timings
+        cache = prepare_graph(step.params, cfg, union).ell_cache
+    return {"launches": launches, "step_ms": step_ms, "losses": losses, "grads_bf16": bf16,
+            "grads_f32": f32, "copy": copy, "peak_gib": peak, "tune": rates,
+            "cache": (cache, union.spec)}
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_trainer() -> dict:
+    """The Trainer at demo_small's width (configs/demo_small.yaml: MSGNN F=64,
+    K=4, mlp_layers=3, previous_t=3, 3 scales) on a small synthetic set, at
+    batch 4 with a ragged tail, batches assembled on the card
+    (DeviceConcatPlan), watch norms every epoch and checkpoints in a
+    temporary directory: fit 2 epochs, save, resume into a new Trainer,
+    fit 1 more."""
+    import tempfile
+
+    from mswe_gnn_tpu_torch import tree_leaves
+    from mswe_gnn_tpu_torch.data.dataset import (fit_dataset_scalers, make_spec,
+                                                 process_record, to_temporal_samples,
+                                                 union_spec)
+    from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
+    from mswe_gnn_tpu_torch.models import build_model
+    from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    records = generate_dataset(3, seed=0, nx=16, ny=16, num_scales=3, total_hours=12,
+                               substeps=8)
+    scalers = fit_dataset_scalers(records[:2], {"area_scaler": "standard",
+                                                "edge_length_scaler": "standard"})
+    procs = [process_record(r, scalers) for r in records]
+    spec = union_spec([make_spec(r.mesh, len(r.mesh.ghosts.ghost_nodes), 64)
+                       for r in records])
+    train = [s for p in procs[:2]
+             for s in to_temporal_samples(p, spec, previous_t=3, rollout_steps=2)][:6]
+    val = to_temporal_samples(procs[2], spec, previous_t=3, rollout_steps=4)[:5]
+    g = train[0]
+    cfg, params, apply_fn = build_model(
+        {"model_type": "MSGNN", "hid_features": 64, "K": 4, "mlp_layers": 3,
+         "learned_residuals": True, "with_WL": True},
+        num_node_features=g.x_static.shape[1] + g.x_dynamic.shape[1],
+        num_edge_features=g.edge_attr.shape[1], num_scales=3, previous_t=3, device=device)
+    opts = TrainerOptions(batch_size=4, max_epochs=3, curriculum_epoch=1, max_rollout_steps=2,
+                          velocity_scaler=7.0, watch_every=1)
+    log(f"[trainer] {len(train)} training samples (one union of 4 an epoch, a tail of 2 "
+        f"dropped), {len(val)} validation samples (unions of 4 and 1), nodes "
+        f"{list(spec.node_counts)}, built in {time.perf_counter() - t0:.1f} s")
+
+    def trainer(ckpt):
+        return Trainer(apply_fn, cfg, params, opts, train, val, checkpoint_dir=ckpt,
+                       checkpoint_every=2, device=device)
+
+    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_trainer_",
+                                     dir=kernel_build.BUILD_DIR) as tmp:
+        ckpt = os.path.join(tmp, "autosave")
+        first = trainer(ckpt)
+        t0 = time.perf_counter()
+        first.fit(max_epochs=2)
+        fit_s = time.perf_counter() - t0
+        if not first._dev_plans:
+            raise AssertionError("the Trainer did not assemble its batches on the card")
+        missing = [f for f in ("meta.json", "params.npz", "opt_state.npz", "heartbeat")
+                   if not os.path.exists(os.path.join(ckpt, f))]
+        if missing:
+            raise AssertionError(f"autosave files missing: {missing}")
+        first.save(ckpt, 2)
+        second = trainer(ckpt)
+        start = second.resume(ckpt)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(second.params),
+                                                    tree_leaves(first.params)))
+        saved = first.optimizer.state_tree(first.opt_state, first.params)
+        restored = second.optimizer.state_tree(second.opt_state, second.params)
+        same_opt = all(torch.equal(a, b) and a.device == b.device
+                       for a, b in zip(tree_leaves(saved), tree_leaves(restored)))
+        if not (start == 2 and same and same_opt and second.opt_state["count"] == 2):
+            raise AssertionError(f"resume: start_epoch {start}, parameters equal {same}, "
+                                 f"optimizer state equal {same_opt}")
+        history = second.fit(max_epochs=3)
+    epochs = [r["epoch"] for r in history]
+    if epochs != [0, 1, 2] or not all(math.isfinite(r["train_loss"]) for r in history):
+        raise AssertionError(f"resumed history {history}")
+    watch = sorted(k for k in history[-1] if k.startswith("watch/"))
+    log(f"[trainer] fit 2 epochs in {fit_s:.1f} s; autosave and heartbeat written; resumed "
+        f"at epoch {start} with parameters and optimizer state bit-equal to the saved ones; "
+        f"history epochs {epochs}, train losses "
+        + ", ".join(f"{r['train_loss']:.6f}" for r in history)
+        + f", val_CSI_005 {history[-1].get('val_CSI_005', float('nan')):.4f}; "
+        f"{len(watch)} watch norms a watched epoch")
+    return {"history": history}
+
+
 # ---------------------------------------------------------------- phase 6
-def phase_timing(cases, flush, serving, train) -> dict:
+def phase_timing(cases, flush, paths) -> dict:
     """Times every case of ``timing_cases`` (kernel, L2 flushed, plain
-    version), with the launch floor before and after. Each row carries the
-    launches of its shape on each path, as the wrappers counted them in the
-    rollout (``serving``) and the train step (``train``), and each kernel's
-    sum of launches x time on each path."""
+    version), with the launch floor before and after. ``paths`` maps each
+    path driven (``serving``, ``train_step``, the batched ones) to the
+    launches the wrappers counted there by ``(kernel, Nd, Ns)``; each row
+    carries the launches of its shape on every path, and each kernel gets
+    its sum of launches x time on each path."""
     floors = [launch_floor_ms()]
     rows = {kernel: [] for kernel in KERNELS}
     for c in cases:
         row = time_fn(c["run"], c["plain"], flush)
         row.update({k: v for k, v in c.items() if k not in ("run", "plain", "key")},
                    n_dst=c["key"][1], n_src=c["key"][2],
-                   launches={"serving": serving[c["key"]], "train_step": train[c["key"]]})
+                   launches={path: counts[c["key"]] for path, counts in paths.items()})
         rows[c["kernel"]].append(row)
     floors.append(launch_floor_ms())
     floor_ms = statistics.median(floors)
@@ -932,7 +1231,7 @@ def phase_timing(cases, flush, serving, train) -> dict:
             row["floor_ms"] = floor_ms
             log_timing(kernel, row)
     for kernel, krows in rows.items():
-        for path in ("serving", "train_step"):
+        for path in paths:
             n = sum(r["launches"][path] for r in krows)
             if n == 0:
                 continue
@@ -944,13 +1243,19 @@ def phase_timing(cases, flush, serving, train) -> dict:
     return rows
 
 
-def kernel_entry(name, source, replaces, launches, max_err, rows):
+def kernel_entry(name, source, replaces, max_err, rows, by_path):
+    """A kernel's entry of the ``kernels`` line: ``launches`` is the sum of
+    its launches on every path driven (``by_path``: launches by kernel, each
+    path counted from 0), the times and the bound those of its first row."""
     head = rows[0]
+    launches_by_path = {path: n[name] for path, n in by_path.items()}
+    if not sum(launches_by_path.values()):
+        raise AssertionError(f"{name} was launched on no path")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_err, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "launches": sum(launches_by_path.values()), "max_abs_err": max_err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None, "shape": head["shape"],
-            "shapes": rows}
+            "launches_by_path": launches_by_path, "shapes": rows}
 
 
 def main() -> None:
@@ -970,30 +1275,39 @@ def main() -> None:
     flush = torch.empty(24 * 2 ** 20, dtype=torch.int32, device="cuda")   # 96 MB > L2
     serving = phase_serving(sample, mesh, cfg, params, apply_fn)
     train = phase_train(banded, cfg, params, apply_fn)
-    timing = phase_timing(timing_cases(banded, serving["cache"], cfg), flush,
-                          serving["launches"], train["launches"])
-    # launches: the count of the train step (this slice's path); every
-    # kernel also lists the serving rollout's count
-    serving_n, train_n = by_kernel(serving["launches"]), by_kernel(train["launches"])
+    batched = phase_batched_serving(sample, cfg, params, apply_fn, serving)
+    batched_train = phase_batched_train(banded, sample, cfg, params, apply_fn)
+    phase_trainer()
+    # phase 6 runs last: it also times the union shapes of phases 7 and 8
+    cases = timing_cases(banded, serving["cache"], cfg)
+    cache4, spec4 = batched_train["cache"]
+    cases += ell_timing_cases(cache4, spec4, {(nd, ns) for _, nd, ns in hops_per_step(cfg, spec4)},
+                              f"union b={TRAIN_BATCH} ")
+    cache20, spec20 = batched["caches"][20]
+    cases += ell_timing_cases(cache20, spec20, set(), "union b=20 ")
+    paths = {"serving": serving["launches"], "train_step": train["launches"]}
+    paths.update({f"serving_b{b}": counts for b, counts in batched["launches"].items()})
+    paths[f"train_step_b{TRAIN_BATCH}"] = batched_train["launches"]
+    timing = phase_timing(cases, flush, paths)
+    by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
         kernel_entry("hop", SOURCES["hop"], "mswe_gnn_tpu/ops/pallas_hop.py:54",
-                     train_n["hop"], checks.max_err("hop"), timing["hop"]),
+                     checks.max_err("hop"), timing["hop"], by_path),
         kernel_entry("hop_bwd", SOURCES["hop"],
                      "none: the port's own backward of the ELL hop (XLA autodiff of "
                      "mswe_gnn_tpu/models/swegnn.py:447-471 in the JAX package)",
-                     train_n["hop_bwd"], checks.max_err("hop_bwd"), timing["hop_bwd"]),
+                     checks.max_err("hop_bwd"), timing["hop_bwd"], by_path),
         kernel_entry("band_hop", SOURCES["band_hop"], "mswe_gnn_tpu/ops/band_hop.py:178",
-                     train_n["band_hop"], checks.max_err("band_hop"), timing["band_hop"]),
-        kernel_entry("band_hop_bwd", SOURCES["band_hop"],
-                     "mswe_gnn_tpu/ops/band_hop.py:255", train_n["band_hop_bwd"],
-                     checks.max_err("band_hop_bwd"), timing["band_hop_bwd"]),
+                     checks.max_err("band_hop"), timing["band_hop"], by_path),
+        kernel_entry("band_hop_bwd", SOURCES["band_hop"], "mswe_gnn_tpu/ops/band_hop.py:255",
+                     checks.max_err("band_hop_bwd"), timing["band_hop_bwd"], by_path),
     ]
-    for k in kernels:
-        k["launches_by_path"] = {"serving": serving_n[k["name"]],
-                                 "train_step": train_n[k["name"]]}
     kernels[0]["rollout_ms"] = serving["rollout_ms"]
+    kernels[0]["s_per_sim_by_batch"] = batched["s_per_sim"]
     for k in kernels[1:]:
         k["train_step_ms"] = train["step_ms"]
+    for k in kernels[:2]:
+        k[f"train_step_b{TRAIN_BATCH}_ms"] = batched_train["step_ms"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,8 +8,11 @@ run in CUDA kernels written for Hopper (``ops/csrc/``: the ELL hop and the
 banded hop, forward and backward). This package imports torch, numpy and
 the standard library only.
 
+Batches are disconnected unions of graphs (``graph.concat_graphs``).
+
 Entry points (``models.build_model``, ``training.rollout.rollout``,
-``training.train.Trainer``, ``train_step``, ``eval_step``) run on the GPU
+``training.train.Trainer``, ``train_step``, ``eval_step``,
+``tune_batch_size``) run on the GPU
 unless the caller passes ``device="cpu"`` (or a graph on the CPU); without a
 GPU and without a device they raise.
 """

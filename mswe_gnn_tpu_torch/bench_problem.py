@@ -11,7 +11,9 @@ so they are not the JAX package's numbers.
 ``build_bench_sample(band=True)`` attaches the band plan with its defaults,
 as bench.py:121-131 does; ``BenchTrainStep`` is the train step of
 bench.py:304-341 (``bench_training``): a 6-step pushforward with remat,
-batch 1, ``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``.
+``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``. A ``batch`` of b
+serves or trains ``concat_graphs([sample] * b)``, as bench.py:311-314 and
+:355-359 do (the union carries no band plan).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from mswe_gnn_tpu_torch.data.dataset import (
 )
 from mswe_gnn_tpu_torch.data.simulate import random_dem_fn
 from mswe_gnn_tpu_torch.data.synthetic import make_multiscale_grid
-from mswe_gnn_tpu_torch.graph import FloodGraph
+from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
 from mswe_gnn_tpu_torch.models.registry import build_model
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
 from mswe_gnn_tpu_torch.training.train import (Optimizer, TrainerOptions, clone_tree,
@@ -37,10 +39,11 @@ NUM_SCALES, PREVIOUS_T = 3, 3
 TRAIN_ROLLOUT_STEPS = 6
 
 
-def build_bench_sample(nx=152, ny=152, T=48, band=False):
+def build_bench_sample(nx=152, ny=152, T=48, band=False, batch=1):
     """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
     ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take;
-    ``band`` attaches the band plan (``attach_band_plan`` defaults)."""
+    ``band`` attaches the band plan (``attach_band_plan`` defaults); a
+    ``batch`` > 1 gives the concat union of that many copies."""
     rng = np.random.default_rng(0)
     dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
     mesh = make_multiscale_grid(nx, ny, 100.0, NUM_SCALES, dem_fn, n_bc=4)
@@ -60,7 +63,7 @@ def build_bench_sample(nx=152, ny=152, T=48, band=False):
                                  rollout_steps=-1)[0]
     if band:
         sample = attach_band_plan(sample)
-    return sample, mesh
+    return concat_graphs([sample] * batch), mesh
 
 
 def build_bench_model(sample, device=None):
@@ -79,8 +82,9 @@ def build_bench_model(sample, device=None):
 
 @dataclasses.dataclass
 class BenchTrainStep:
-    """The train step of bench_training on one graph; calling it takes one
-    step, updates ``params`` in place and returns the loss (a tensor)."""
+    """The train step of bench_training on one graph or a union; calling it
+    takes one step, updates ``params`` in place and returns the loss (a
+    tensor)."""
     apply_fn: object
     cfg: object
     params: dict
@@ -99,11 +103,14 @@ class BenchTrainStep:
         return loss
 
 
-def build_bench_train_step(sample, cfg, params, apply_fn, device=None) -> BenchTrainStep:
+def build_bench_train_step(sample, cfg, params, apply_fn, device=None,
+                           batch=1) -> BenchTrainStep:
     """bench_training's settings on ``device`` (default: the GPU): the
-    graph and a copy of the parameters moved there, a fresh optimizer."""
+    graph, or the union of ``batch`` copies of it, and a copy of the
+    parameters moved there, a fresh optimizer."""
     device = resolve_device(device)
-    opts = TrainerOptions(batch_size=1, velocity_scaler=7.0, remat=True)
+    sample = concat_graphs([sample] * batch)
+    opts = TrainerOptions(batch_size=batch, velocity_scaler=7.0, remat=True)
     optimizer = make_optimizer(opts, steps_per_epoch=1)
     params = clone_tree(tree_to(params, device))
     return BenchTrainStep(apply_fn=apply_fn, cfg=cfg, params=params,

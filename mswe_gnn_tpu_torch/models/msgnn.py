@@ -149,7 +149,8 @@ def _pool_block(params, cfg: MSGNNConfig, x_fine, pool_src, pool_mask):
 
 
 def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tensor:
-    """Multiscale forward pass on one graph -> [N, 2] predictions.
+    """Multiscale forward pass on one graph, or on a ``concat_graphs``
+    union, -> [N, 2] predictions.
 
     Reads the loop-invariant tables from ``graph.ell_cache`` when
     ``prepare_graph`` attached them, and computes them otherwise.
@@ -192,7 +193,7 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
             xs_b[scale], xd_b[scale], xs_b[scale], xd_b[scale], None, None,
             same_block=True, agg_table=tab, agg_mask=tmask, ea_slots=ea_slots,
             src_slot_table=srcs, band_plan=band_plan, band_w=band_w,
-            out_table=out_table)
+            sub_blocks=graph.num_graphs, out_table=out_table)
 
     # --- downsweep: fine -> coarse, skipping the coarsest scale
     for i in range(L - 1):
@@ -219,7 +220,8 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
                 params["intra_scale_gnn"][i], cfg.intra_cfg(),
                 xs_b[scale], xd_b[scale], xs_b[lvl], xd_b[lvl], None, None,
                 same_block=False, dst_sorted=False, agg_table=utab,
-                agg_mask=umask, src_slot_table=usrc, out_table=out_table)
+                agg_mask=umask, src_slot_table=usrc, sub_blocks=graph.num_graphs,
+                out_table=out_table)
             if cfg.skip_connections:
                 xd_b[lvl] = xd_b[lvl] + x_down_b[lvl]
 

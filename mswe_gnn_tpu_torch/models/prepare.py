@@ -13,6 +13,11 @@ gradients off (the rollout) no backward runs, and they are left None.
 Training builds the cache inside the loss, every step, with gradients on
 (``training/train.py``), so that the edge encoder gets its gradient: a
 graph that arrives with a cache attached would cut it off.
+
+A ``concat_graphs`` union's tables are built the same way, on its global
+rows: a scale block holds the graphs' sub-blocks back to back and every
+slot reads a row of its own graph, so ``_check_rows`` holds each table to
+the union's block.
 """
 from __future__ import annotations
 

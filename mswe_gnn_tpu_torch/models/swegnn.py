@@ -14,8 +14,9 @@ every hop of every layer runs a hand-written kernel: the banded hop of
 of unplanned scales and the un-pooling hop, ``same_block=False``). Both are
 differentiable through their backward kernels.
 
-Not ported yet, and raising if reached: the edge-major segment-sum path
-(no ``agg_table``) and concat batching (``sub_blocks > 1``).
+A concat-batched union (``sub_blocks > 1``) runs its blocks whole through
+the same kernels. Not ported yet, and raising if reached: the edge-major
+segment-sum path (no ``agg_table``).
 ``SWEGNNConfig.use_pallas`` and ``flat_hop_threshold`` are accepted so that
 the JAX package's config dicts build, and have no effect here: the JAX
 package's slot loop, flat path and Pallas hop all compute the same hop,
@@ -161,12 +162,14 @@ def apply_swegnn_block(
     tables of models/prepare.py; they are derived here when not given.
     ``band_plan`` (``{"win", "idx_rel"}``) with ``band_w = (ws, we)`` sends
     the hops of a same-block layer through the banded kernel.
+
+    ``sub_blocks`` > 1 declares the block a concat union of that many
+    equal-sized, mutually disconnected graphs (``graph.concat_graphs``);
+    the port hops over the union block whole (see the note at the hop loop).
     """
     if agg_table is None:
         raise NotImplementedError("the edge-major segment-sum path is not ported; "
                                   "pass the ELL agg_table")
-    if sub_blocks != 1:
-        raise NotImplementedError("concat batching (sub_blocks > 1) is not ported yet")
     cd = _compute_dtype(cfg)
 
     if cfg.with_filter_matrix:
@@ -201,6 +204,14 @@ def apply_swegnn_block(
                             we=we, with_gradient=cfg.with_gradient,
                             upwind=cfg.upwind_mode, out_table=out_table)
     else:
+        # A concat union (sub_blocks > 1) hops as one block. The JAX package
+        # splits a union past HOP_CHUNK_TARGET_ROWS into per-graph chunks
+        # (swegnn.py:371-419) to keep the TPU gather unit's VMEM staging of
+        # the state table small; the kernel here gathers from HBM and L2 at
+        # any table size, so it takes the whole block. The math is the same:
+        # a chunk's sources lie in the chunk (the graphs are disjoint), and a
+        # masked padding slot aliases edge 0 of the whole block, a row in
+        # range that the slot mask (zero flux) kills.
         def one_hop(state):
             return hop(state, state if same_block else out_src, src_slot_table, s_tab,
                        with_gradient=cfg.with_gradient, upwind=cfg.upwind_mode,

@@ -1,14 +1,16 @@
 """Where the time of the port's bench rollout (or train step) goes, on one
 NVIDIA GPU.
 
-    python3 -m mswe_gnn_tpu_torch.profile_rollout [--train] [--trace PATH]
+    python3 -m mswe_gnn_tpu_torch.profile_rollout [--train] [--batch B] [--trace PATH]
 
 Builds the bench problem (bench_problem.py: 152x152 grid, 3 scales, F=64,
 K=5, bf16, 47 steps), runs one rollout to warm up, then traces one rollout
 with torch.profiler (CPU and CUDA activities) and prints one JSON line.
 With ``--train`` it does the same for one train step of bench.py's
 ``bench_training`` instead (band plan attached, 6-step pushforward, remat,
-batch 1), and ``steps`` counts the pushforward's model steps:
+batch 1), and ``steps`` counts the pushforward's model steps. ``--batch B``
+runs either on the concat union of B copies of the bench graph (no band
+plan):
 
 - ``wall_ms``: the traced run, host clock, ending in a synchronize;
 - ``device_busy_ms``: the union of the GPU kernel and copy intervals, and
@@ -31,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sample,
                                               build_bench_train_step)
+from mswe_gnn_tpu_torch.graph import concat_graphs
 from mswe_gnn_tpu_torch.training.rollout import rollout
 
 
@@ -63,6 +66,8 @@ def main(argv=None) -> None:
     parser.add_argument("--top", type=int, default=12)
     parser.add_argument("--train", action="store_true",
                         help="profile one bench train step instead of the rollout")
+    parser.add_argument("--batch", type=int, default=1,
+                        help="graphs in the concat union (default 1)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_rollout: no CUDA device")
@@ -70,10 +75,11 @@ def main(argv=None) -> None:
     sample, _ = build_bench_sample(band=args.train)
     cfg, params, apply_fn = build_bench_model(sample, device=device)
     if args.train:
-        run = build_bench_train_step(sample, cfg, params, apply_fn, device=device)
+        run = build_bench_train_step(sample, cfg, params, apply_fn, device=device,
+                                     batch=args.batch)
         steps = run.rollout_steps
     else:
-        graph = sample.to(device)
+        graph = concat_graphs([sample] * args.batch).to(device)
         steps = sample.y.shape[-1]
 
         def run():
@@ -98,6 +104,7 @@ def main(argv=None) -> None:
     result = {
         "device": torch.cuda.get_device_name(0),
         "run": "train_step" if args.train else "rollout", "steps": steps,
+        "batch": args.batch,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": len(events) / steps,

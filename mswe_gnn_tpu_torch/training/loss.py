@@ -5,8 +5,8 @@ mswe_gnn_tpu/training/loss.py).
 Static-shape masking as in the JAX package: where the reference compacts
 rows (``diff[where_water]``), all rows are kept and masked sums with dynamic
 counts give identical values. Padded nodes always have diff == 0 and are
-additionally excluded through the node mask. A graph here is one simulation
-(concat batching is not ported), so the conservation residual is a scalar.
+additionally excluded through the node mask. A ``concat_graphs`` union gives
+one conservation residual per graph.
 """
 from __future__ import annotations
 
@@ -57,14 +57,21 @@ def conservation_residual(pred_wd: torch.Tensor, input_wd: torch.Tensor,
     (reference training/loss.py:120-168).
 
     ``pred_wd``/``input_wd`` [N, 1] water depth at t+1 and t, ``bc_now``
-    [Nbc] the BC value at the step boundary per ghost node."""
+    [Nbc] the BC value at the step boundary per ghost node. A
+    ``concat_graphs`` union gives the per-graph residuals ``[num_graphs]``
+    (its finest block and BC arrays reshaped to ``[b, -1]``); one graph
+    gives a scalar."""
+    b = graph.num_graphs
     vol = graph.area[:, None] * (pred_wd - input_wd)
-    fs = graph.spec.node_slice(0)
-    predicted_inflow = (vol[fs] * graph.node_mask[fs, None]).sum()
+    fs = graph.finest_slice()
+    predicted_inflow = (vol[fs] * graph.node_mask[fs, None]).reshape(b, -1).sum(dim=1)
     # theoretical inflow: sum(|q| * L_bc) * dt (reference utils/dataset.py:577-591)
-    inflow = (bc_now * graph.bc_edge_length * graph.bc_mask).sum() * (60.0 * graph.temporal_res)
-    ghost = (vol[:, 0].index_select(0, graph.bc_nodes.long()) * graph.bc_mask).sum()
-    return (predicted_inflow - inflow - ghost) / 1e6
+    inflow = ((bc_now * graph.bc_edge_length * graph.bc_mask).reshape(b, -1).sum(dim=1)
+              * (60.0 * graph.temporal_res))
+    ghost = ((vol[:, 0].index_select(0, graph.bc_nodes.long()) * graph.bc_mask)
+             .reshape(b, -1).sum(dim=1))
+    res = (predicted_inflow - inflow - ghost) / 1e6
+    return res if b > 1 else res[0]
 
 
 def step_loss_sums(preds: torch.Tensor, target: torch.Tensor, graph: FloodGraph,
@@ -76,7 +83,7 @@ def step_loss_sums(preds: torch.Tensor, target: torch.Tensor, graph: FloodGraph,
     :func:`combine_batch_loss` or as ``train.pushforward_loss`` does."""
     diff = preds - target
     if multiscale:
-        fs = graph.spec.node_slice(0)
+        fs = graph.finest_slice()
         diff_sel = diff[fs]
         nmask = graph.node_mask[fs]
     else:

@@ -2,8 +2,9 @@
 
 A Python loop over steps: inject the boundary condition into the ghost rows,
 predict, shift the prediction into the dynamic window (reference
-utils/dataset.py:486-529, training/train.py:67-95). ``rollout_batch`` is not
-ported yet.
+utils/dataset.py:486-529, training/train.py:67-95). A ``concat_graphs`` union
+rolls out as one graph: its BC arrays hold every graph's ghost rows.
+``rollout_batch`` (the vmap batch layout) is not ported yet.
 """
 from __future__ import annotations
 

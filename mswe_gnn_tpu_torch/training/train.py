@@ -1,12 +1,13 @@
 """Training: the pushforward rollout loss, AdamW with a staircase StepLR and
-global-norm clipping, the curriculum, validation and early stopping (port of
-mswe_gnn_tpu/training/train.py for single-graph batches).
+global-norm clipping, the curriculum, validation, early stopping, checkpoints
+and resume (port of mswe_gnn_tpu/training/train.py).
 
 - ``pushforward_loss`` unrolls the model over ``rollout_steps`` steps in a
   Python loop, with gradients through the whole unroll (no detach between
   steps), as the JAX package's ``lax.scan`` does. With ``opts.remat`` each
   step's model call runs under ``torch.utils.checkpoint`` (non-reentrant),
-  as ``jax.checkpoint`` wraps ``apply_fn`` there.
+  as ``jax.checkpoint`` wraps ``apply_fn`` there. A batch is one graph or a
+  ``concat_graphs`` union (``opts.batch_size`` graphs).
 - The loop-invariant graph cache (models/prepare.py) is built inside the
   loss, with gradients on, so that the edge encoder is trained.
 - The optimizer is ``optax.chain(clip_by_global_norm, adamw)`` written out:
@@ -15,14 +16,18 @@ mswe_gnn_tpu/training/train.py for single-graph batches).
   the options' weight decay (torch's default 0.01 is not the JAX
   package's), and the learning rate is the epoch staircase
   ``gamma ** (step // (step_size * steps_per_epoch))``.
+- ``Trainer`` assembles its batches on the device (``DeviceConcatPlan``
+  over a ``stack_graphs`` copy of each sample list), autosaves
+  (``training/checkpoint.py``), resumes, and touches a heartbeat file.
 
-Not ported yet, and raising: checkpoints and resume, the heartbeat, watch
-norms, the batch tuners, vmap-stacked batches and ``batch_size > 1``
-(concat batching).
+Not ported yet, and raising: the vmap batch layout (``batch_layout="vmap"``,
+stacked batches as a model input) and ``find_max_batch_size``, which probes
+with it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -31,9 +36,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mswe_gnn_tpu_torch import resolve_device, tree_leaves, tree_map, tree_to
-from mswe_gnn_tpu_torch.graph import FloodGraph
+from mswe_gnn_tpu_torch.graph import DeviceConcatPlan, FloodGraph, concat_graphs, stack_graphs
 from mswe_gnn_tpu_torch.models.prepare import prepare_graph
 from mswe_gnn_tpu_torch.training import loss as loss_lib
+from mswe_gnn_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from mswe_gnn_tpu_torch.training.rollout import (bc_step_inflow, bc_window, inject_bc,
                                                  rollout, shift_prediction,
                                                  with_step_forcing)
@@ -63,7 +69,7 @@ class TrainerOptions:
     spike_rollback_factor: float = 10.0
     spike_window: int = 8
     best_metric: str = "val_CSI_005"
-    watch_every: int = 0               # not ported: must stay 0
+    watch_every: int = 0               # per-module norms every N epochs; 0: off
 
 
 # ---------------------------------------------------------------- param trees
@@ -107,6 +113,28 @@ class Optimizer:
         norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
         keep = norm < self.grad_clip
         return [torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip) for g in grads]
+
+    def state_tree(self, state: dict, params) -> dict:
+        """The optimizer state as a tree of tensors, for a checkpoint: the
+        update count and AdamW's step and moments of every parameter, in
+        ``tree_leaves(params)`` order (zeros before the first update, as
+        AdamW would create them)."""
+        adamw = state["adamw"]
+        per = [adamw.state.get(p, {}) for p in tree_leaves(params)]
+        return {"count": torch.tensor(state["count"], dtype=torch.int64),
+                "step": [st.get("step", torch.tensor(0.0)) for st in per],
+                "exp_avg": [st.get("exp_avg", torch.zeros_like(p))
+                            for st, p in zip(per, tree_leaves(params))],
+                "exp_avg_sq": [st.get("exp_avg_sq", torch.zeros_like(p))
+                               for st, p in zip(per, tree_leaves(params))]}
+
+    def load_state_tree(self, state: dict, params, tree: dict) -> None:
+        """Puts a ``state_tree`` back into ``state`` for ``params``."""
+        adamw = state["adamw"]
+        for p, step, m, v in zip(tree_leaves(params), tree["step"], tree["exp_avg"],
+                                 tree["exp_avg_sq"]):
+            adamw.state[p] = {"step": step, "exp_avg": m, "exp_avg_sq": v}
+        state["count"] = int(tree["count"])
 
     def update(self, grads, state: dict, params) -> None:
         """One update of ``params`` in place from the gradient tree ``grads``."""
@@ -188,8 +216,11 @@ class CurriculumController:
 def pushforward_loss(apply_fn: Callable, params, cfg, batch: FloodGraph,
                      rollout_steps: int, opts: TrainerOptions,
                      multiscale: bool) -> torch.Tensor:
-    """Mean over rollout steps of the step loss (JAX train.py:243-304,
-    single-graph branch; reference training/train.py:125-145)."""
+    """Mean over rollout steps of the batch-aggregated step loss (JAX
+    train.py:243-304, the union branch; reference training/train.py:125-145).
+    On a ``concat_graphs`` union the errors are concat-then-mean over its
+    graphs and the conservation term is the |batch mean| of their signed
+    residuals."""
     if batch.x_static.dim() != 2:
         raise NotImplementedError("vmap-stacked batches are not ported")
     if opts.remat:
@@ -220,7 +251,9 @@ def pushforward_loss(apply_fn: Callable, params, cfg, batch: FloodGraph,
     scaler = loss_lib.loss_variable_scaler(opts.velocity_scaler, device=err.device)
     per_step = err @ scaler / scaler.sum()                                # [T]
     if opts.conservation != 0.0:
-        per_step = per_step + opts.conservation * torch.stack(cons).abs()
+        cons = torch.stack(cons)                                          # [T] or [T, b]
+        cons_mean = cons.mean(-1) if cons.dim() > 1 else cons
+        per_step = per_step + opts.conservation * cons_mean.abs()
     return per_step.mean()
 
 
@@ -269,64 +302,148 @@ def train_step(params, opt_state, batch: FloodGraph, *, apply_fn, cfg,
 
 
 def eval_step(params, batch: FloodGraph, *, apply_fn, cfg, steps: int,
-              opts: TrainerOptions, multiscale: bool, device=None) -> Dict[str, float]:
-    """Full-rollout validation metrics on one graph (JAX train.py:321-363,
-    single-graph branch; reference training/train.py:157-180) on ``device``
-    (default: the GPU; raises when there is none). Metrics are taken on the
-    finest scale of a multiscale graph."""
+              opts: TrainerOptions, multiscale: bool, per_graph: bool = False,
+              device=None) -> Dict[str, object]:
+    """Full-rollout validation metrics on one graph or a ``concat_graphs``
+    union (JAX train.py:321-363; reference training/train.py:157-180) on
+    ``device`` (default: the GPU; raises when there is none). Metrics are
+    taken on the finest scale of a multiscale graph.
+
+    With ``per_graph`` a union also gives per-simulation curves: the tiled
+    spec keeps each scale's graphs back to back, so the finest block
+    reshapes to ``[B, n0, ...]``: ``per_graph_CSI_005`` and
+    ``per_graph_CSI_03`` ``[B]`` and ``per_graph_loss`` ``[B, 2]``, as
+    numpy arrays."""
     if batch.x_static.dim() != 2:
-        raise NotImplementedError("vmap-stacked batches are not ported")
+        raise NotImplementedError("vmap-stacked batches (the vmap batch layout) are not "
+                                  "ported; batch with concat_graphs")
     device = resolve_device(device)
     batch = batch.to(device)
     preds = rollout(apply_fn, params, cfg, batch, steps, device=device)
     real = batch.y[..., :steps]
     nmask = batch.node_mask
     if multiscale:
-        fs = batch.spec.node_slice(0)
+        fs = batch.finest_slice()
         preds, real, nmask = preds[fs], real[fs], nmask[fs]
     val_loss = get_rollout_loss(preds, real, nmask, type_loss=opts.type_loss,
                                 only_where_water=opts.only_where_water).mean()
     csi005 = get_csi(preds, real, nmask, water_threshold=0.05)
     csi03 = get_csi(preds, real, nmask, water_threshold=0.3)
-    return {"val_loss": float(val_loss), "val_CSI_005": float(csi005.nanmean()),
-            "val_CSI_03": float(csi03.nanmean())}
+    out = {"val_loss": float(val_loss), "val_CSI_005": float(csi005.nanmean()),
+           "val_CSI_03": float(csi03.nanmean())}
+    if per_graph and batch.num_graphs > 1:
+        b = batch.num_graphs
+        n0 = preds.shape[0] // b
+        pg = preds.reshape(b, n0, *preds.shape[1:])
+        rg = real.reshape(b, n0, *real.shape[1:])
+        mg = nmask.reshape(b, n0)
+        host = lambda x: x.cpu().numpy()                                 # noqa: E731
+        out["per_graph_CSI_005"] = host(get_csi(pg, rg, mg, water_threshold=0.05)
+                                        .nanmean(dim=-1))
+        out["per_graph_CSI_03"] = host(get_csi(pg, rg, mg, water_threshold=0.3)
+                                       .nanmean(dim=-1))
+        out["per_graph_loss"] = host(get_rollout_loss(
+            pg, rg, mg, type_loss=opts.type_loss, only_where_water=opts.only_where_water))
+    return out
 
 
 def find_max_batch_size(*args, **kwargs):
-    raise NotImplementedError("the batch tuners need concat batching, not ported yet")
+    raise NotImplementedError("find_max_batch_size probes with stack_graphs batches (the "
+                              "vmap batch layout), which is not ported; use tune_batch_size")
 
 
-def tune_batch_size(*args, **kwargs):
-    raise NotImplementedError("the batch tuners need concat batching, not ported yet")
+def tune_batch_size(apply_fn, cfg, params, graphs, opts: TrainerOptions,
+                    multiscale: bool = True, candidates=(1, 2, 4, 8, 16), reps: int = 3,
+                    device=None):
+    """Throughput batch tuner (JAX train.py:203-240): one train step at each
+    concat batch size of ``candidates`` (while ``graphs`` has that many) at
+    ``opts.max_rollout_steps``, a warm-up and then ``reps`` timed steps ->
+    ``(fastest batch, {batch: simulations/s})``.
+
+    Stops at the first batch size that runs out of device memory, the limit
+    it probes. Any other error raises: a kernel that fails to build or
+    launch must not read as a memory limit (the JAX tuner stops at any
+    exception)."""
+    device = resolve_device(device)
+    optimizer = make_optimizer(opts, steps_per_epoch=1)
+    rates: Dict[int, float] = {}
+    best, best_rate = candidates[0], 0.0
+    for bs in candidates:
+        if bs > len(graphs):
+            break
+        try:
+            batch = concat_graphs(list(graphs[:bs])).to(device)
+            p = clone_tree(tree_to(params, device))
+            st = optimizer.init(p)
+            kw = dict(apply_fn=apply_fn, cfg=cfg, rollout_steps=opts.max_rollout_steps,
+                      opts=opts, multiscale=multiscale, optimizer=optimizer, device=device)
+            _, _, loss = train_step(p, st, batch, **kw)
+            float(loss)                                   # warm-up, synchronised
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                _, _, loss = train_step(p, st, batch, **kw)
+            float(loss)                                   # synchronise
+            rates[bs] = bs * reps / (time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError:
+            break
+        if rates[bs] > best_rate:
+            best, best_rate = bs, rates[bs]
+    return best, rates
 
 
-def watch_norms(*args, **kwargs):
-    raise NotImplementedError("watch norms are not ported yet")
+def watch_norms(params, prev=None, prefix: str = "watch") -> Dict[str, float]:
+    """L2 norms of the parameters of every top-level module and, with
+    ``prev``, of the net update since ``prev`` (JAX train.py:85-111; the
+    reference's wandb ``watch(log='all')``, main.py:95)."""
+    groups = sorted(params.items()) if isinstance(params, dict) else [("params", params)]
+    prev_groups = dict(sorted(prev.items()) if isinstance(prev, dict)
+                       else [("params", prev)]) if prev is not None else None
+    sq: Dict[str, float] = {}
+    dsq: Dict[str, float] = {}
+    for key, tree in groups:
+        leaves = tree_leaves(tree)
+        prev_leaves = tree_leaves(prev_groups[key]) if prev_groups is not None else None
+        for i, leaf in enumerate(leaves):
+            sq[key] = sq.get(key, 0.0) + float(leaf.float().square().sum())
+            if prev_leaves is not None:
+                d = leaf.float() - prev_leaves[i].float()
+                dsq[key] = dsq.get(key, 0.0) + float(d.square().sum())
+    out = {f"{prefix}/{k}_norm": float(np.sqrt(v)) for k, v in sq.items()}
+    out.update({f"{prefix}/{k}_update_norm": float(np.sqrt(v)) for k, v in dsq.items()})
+    return out
 
 
 # ---------------------------------------------------------------- trainer
 
 class Trainer:
-    """Curriculum fit, validation, early stopping and spike rollback on one
-    device (JAX train.py:382-712), one graph a batch.
+    """Curriculum fit, validation, early stopping, spike rollback,
+    checkpoints and resume on one device (JAX train.py:382-735).
 
     The graphs and a private copy of the parameters are moved to ``device``
-    (default: the GPU) once. ``best_params`` is a copy taken at each
-    improvement of ``opts.best_metric``."""
+    (default: the GPU) once. A batch is a ``concat_graphs`` union of
+    ``opts.batch_size`` graphs, assembled on the device by a
+    ``DeviceConcatPlan`` over a ``stack_graphs`` copy of the sample list (the
+    same union, bit for bit), or on the host where the samples do not share
+    a spec. ``best_params`` is a copy
+    taken at each improvement of ``opts.best_metric``; with
+    ``checkpoint_dir`` it is also saved to ``<checkpoint_dir>/best_val``, the
+    whole state is autosaved every ``checkpoint_every`` epochs, and a
+    ``heartbeat`` file is touched as training advances.
+
+    The autosave also keeps the shuffle generator's state, so that a resumed
+    run draws the batches an uninterrupted one would (the JAX package's
+    resume restarts the generator from the seed).
+    """
 
     def __init__(self, apply_fn, cfg, params, opts: TrainerOptions,
                  train_graphs: List[FloodGraph], val_graphs: List[FloodGraph],
                  multiscale: bool = True, log_fn: Optional[Callable] = None,
-                 checkpoint_dir: Optional[str] = None,
-                 curriculum_mode: str = "epoch", device=None):
-        if opts.batch_size != 1:
-            raise NotImplementedError("batch_size > 1 needs concat batching, "
-                                      "not ported yet")
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpoints, resume and the heartbeat are "
-                                      "not ported yet")
-        if opts.watch_every:
-            raise NotImplementedError("watch norms are not ported yet")
+                 checkpoint_dir: Optional[str] = None, checkpoint_every: int = 25,
+                 curriculum_mode: str = "epoch", batch_layout: str = "concat",
+                 device=None):
+        if batch_layout != "concat":
+            raise NotImplementedError(f"batch_layout={batch_layout!r}: only the concat "
+                                      "layout is ported (the vmap layout is not)")
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.cfg = cfg
@@ -347,13 +464,36 @@ class Trainer:
         self.best_score: Optional[float] = None
         self.epochs_without_improvement = 0
         self._recent_losses: List[float] = []
+        self._last_heartbeat = 0.0
+        self.start_epoch = 0
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
         self.curriculum = CurriculumController(opts, mode=curriculum_mode)
+        self._dev_stacked: Dict[int, tuple] = {}
+        self._dev_plans: Dict[tuple, DeviceConcatPlan] = {}
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet")
+    def _device_stacked(self, graphs) -> Optional[FloodGraph]:
+        """The ``stack_graphs`` copy of a sample list, built once; None when
+        the samples do not share a spec. The cache keeps the list itself, so
+        a reused ``id`` cannot hand out another list's copy."""
+        key = id(graphs)
+        hit = self._dev_stacked.get(key)
+        if hit is None or hit[0] is not graphs:
+            g0 = graphs[0]
+            ok = all(g.spec == g0.spec and g.previous_t == g0.previous_t
+                     and g.bc_kind == g0.bc_kind and (g.y is None) == (g0.y is None)
+                     and (g.y is None or g.y.shape == g0.y.shape)
+                     and (g.forcing is None) == (g0.forcing is None)
+                     for g in graphs)
+            hit = (graphs, stack_graphs(graphs) if ok else None)
+            self._dev_stacked[key] = hit
+        return hit[1]
 
-    def resume(self, *args, **kwargs):
-        raise NotImplementedError("resume is not ported yet")
+    def _device_plan(self, spec, b) -> DeviceConcatPlan:
+        key = (spec, b)
+        if key not in self._dev_plans:
+            self._dev_plans[key] = DeviceConcatPlan(spec, b)
+        return self._dev_plans[key]
 
     def _maybe_rollback(self, train_loss: float) -> bool:
         """Divergence guard (JAX train.py:468-507): on a loss spike (>= factor
@@ -369,40 +509,132 @@ class Trainer:
         elif factor and not np.isfinite(train_loss):
             triggered = True
         if triggered and self.best_score is not None:
-            with torch.no_grad():
-                for p, b in zip(tree_leaves(self.params), tree_leaves(self.best_params)):
-                    p.copy_(b)
+            self._copy_into_params(self.best_params)
             self._recent_losses.clear()
             return True
         if np.isfinite(train_loss):
             self._recent_losses.append(train_loss)
         return False
 
-    def _batches(self, graphs, shuffle: bool):
+    def _copy_into_params(self, tree) -> None:
+        """Parameters set from ``tree`` in place: the optimizer holds these
+        very tensors."""
+        with torch.no_grad():
+            for p, v in zip(tree_leaves(self.params), tree_leaves(tree)):
+                p.copy_(v)
+
+    def save(self, path: str, epoch: int) -> None:
+        """Checkpoint for crash recovery: parameters, optimizer state, the
+        epoch to continue from, the history, the early-stop state and the
+        shuffle generator's state."""
+        save_checkpoint(path, self.params,
+                        opt_state=self.optimizer.state_tree(self.opt_state, self.params),
+                        epoch=epoch, history=self.history,
+                        extra={"best_val_csi": self.best_val_csi,
+                               "best_val_loss": self.best_val_loss,
+                               "best_score": self.best_score,
+                               "best_metric": self.opts.best_metric,
+                               "epochs_without_improvement":
+                                   self.epochs_without_improvement,
+                               "rng_state": self.rng.bit_generator.state})
+
+    def resume(self, path: str) -> int:
+        """Restore the parameters (in place), the optimizer state, the
+        history, the early-stop state and, from ``<path>/best_val``, the
+        best parameters of a checkpoint; returns the epoch to continue
+        from (JAX train.py:528-571)."""
+        params, opt_tree, meta = restore_checkpoint(
+            path, self.params, self.optimizer.state_tree(self.opt_state, self.params))
+        self._copy_into_params(params)
+        if opt_tree is not None:
+            self.optimizer.load_state_tree(self.opt_state, self.params, opt_tree)
+        self.history = meta.get("history", [])
+        self.start_epoch = int(meta.get("epoch", 0))
+        best_dir = os.path.join(path, "best_val")
+        if os.path.exists(os.path.join(best_dir, "meta.json")):
+            best, _, bmeta = restore_checkpoint(best_dir, self.params)
+            self.best_params = best
+            self.best_val_loss = float(bmeta.get("best_val_loss", float("inf")))
+            if bmeta.get("best_metric", "val_loss") == self.opts.best_metric:
+                bs = bmeta.get("best_score", bmeta.get("best_val_loss"))
+                self.best_score = None if bs is None else float(bs)
+            else:
+                # saved under another selection metric: keep the parameters,
+                # let the next validation set the score under this one
+                self.best_score = None
+            hist_csi = [r.get("val_CSI_005", 0.0) for r in self.history]
+            self.best_val_csi = max(hist_csi) if hist_csi else 0.0
+        if "best_val_csi" in meta:
+            self.best_val_csi = float(meta["best_val_csi"])
+        if "best_val_loss" in meta:
+            self.best_val_loss = float(meta["best_val_loss"])
+        if (meta.get("best_score") is not None
+                and meta.get("best_metric") == self.opts.best_metric):
+            self.best_score = float(meta["best_score"])
+        self.epochs_without_improvement = int(meta.get("epochs_without_improvement", 0))
+        if "rng_state" in meta:
+            self.rng.bit_generator.state = meta["rng_state"]
+        return self.start_epoch
+
+    def _batches(self, graphs, batch_size: int, shuffle: bool, drop_tail: bool = True):
+        """Unions of ``batch_size`` graphs in the generator's order (JAX
+        train.py:583-604). Training drops a ragged tail; validation
+        (``drop_tail=False``) keeps it as a smaller union."""
         idx = np.arange(len(graphs))
         if shuffle:
             self.rng.shuffle(idx)
-        for i in idx:
-            yield graphs[i]
+        stacked = self._device_stacked(graphs) if len(graphs) > 1 else None
+        if stacked is not None:
+            def build(sel):
+                return self._device_plan(graphs[0].spec, len(sel))(
+                    stacked, np.asarray(sel, np.int64))
+        else:
+            def build(sel):
+                return concat_graphs([graphs[j] for j in sel])
+        for i in range(0, len(idx) - batch_size + 1, batch_size):
+            yield build(idx[i:i + batch_size])
+        rem = len(idx) % batch_size
+        if rem and len(idx) >= batch_size:
+            if not drop_tail:
+                yield build(idx[len(idx) - rem:])
+        elif rem:
+            yield build(idx)
+
+    def _heartbeat(self) -> None:
+        """Touch ``<checkpoint_dir>/heartbeat``, at most every 10 s: proof
+        that the loop advances within an epoch, for a stall watchdog."""
+        if not self.checkpoint_dir:
+            return
+        now = time.time()
+        if now - self._last_heartbeat >= 10.0:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            with open(os.path.join(self.checkpoint_dir, "heartbeat"), "w") as f:
+                f.write(f"{now}\n")
+            self._last_heartbeat = now
 
     def fit(self, max_epochs: Optional[int] = None, val_every: int = 1):
         opts = self.opts
         max_epochs = max_epochs if max_epochs is not None else opts.max_epochs
-        for epoch in range(max_epochs):
+        for epoch in range(self.start_epoch, max_epochs):
             rollout_steps = self.curriculum.on_epoch_start(epoch)
             t0 = time.time()
+            watching = opts.watch_every > 0 and epoch % opts.watch_every == 0
+            prev_params = clone_tree(self.params) if watching else None
             losses = []
-            for batch in self._batches(self.train_graphs, True):
+            for batch in self._batches(self.train_graphs, opts.batch_size, True):
                 self.params, self.opt_state, loss = train_step(
                     self.params, self.opt_state, batch, apply_fn=self.apply_fn,
                     cfg=self.cfg, rollout_steps=rollout_steps, opts=opts,
                     multiscale=self.multiscale, optimizer=self.optimizer,
                     device=self.device)
                 losses.append(loss)
+                self._heartbeat()
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             self.curriculum.on_epoch_end(train_loss)
             record = {"epoch": epoch, "rollout_steps": rollout_steps,
                       "train_loss": train_loss, "epoch_time": time.time() - t0}
+            if watching:
+                record.update(watch_norms(self.params, prev_params))
             if self._maybe_rollback(train_loss):
                 record["spike_rollback"] = 1
             if self.val_graphs and (epoch % val_every == 0 or epoch == max_epochs - 1):
@@ -418,6 +650,13 @@ class Trainer:
                 if improved:
                     self.best_score = float(score)
                     self.best_params = clone_tree(self.params)
+                    if self.checkpoint_dir:
+                        # the global best survives a restart from the autosave
+                        save_checkpoint(os.path.join(self.checkpoint_dir, "best_val"),
+                                        self.best_params, epoch=epoch,
+                                        extra={"best_metric": opts.best_metric,
+                                               "best_score": self.best_score,
+                                               "best_val_loss": metrics["val_loss"]})
                 # early stop on CSI@0.05, as the reference does (main.py:94)
                 if metrics["val_CSI_005"] > self.best_val_csi + 1e-12:
                     self.best_val_csi = metrics["val_CSI_005"]
@@ -430,20 +669,28 @@ class Trainer:
                     break
             self.history.append(record)
             self.log_fn(record)
+            if self.checkpoint_dir and (epoch + 1) % self.checkpoint_every == 0:
+                self.save(self.checkpoint_dir, epoch + 1)
         return self.history
 
     def validate(self) -> Dict[str, float]:
-        """Mean of the per-graph metrics over the validation graphs (each
-        graph one vote); a non-finite value is left out of its mean."""
+        """Metrics over the validation graphs in unions of up to
+        ``batch_size``, the ragged tail kept; each union's metrics weighted
+        by its graph count, a non-finite value left out of its mean (JAX
+        train.py:713-735)."""
         steps = int(self.val_graphs[0].y.shape[-1])
-        agg = [eval_step(self.params, g, apply_fn=self.apply_fn, cfg=self.cfg,
-                         steps=steps, opts=self.opts, multiscale=self.multiscale,
-                         device=self.device)
-               for g in self._batches(self.val_graphs, False)]
+        agg, weights = [], []
+        bs = min(self.opts.batch_size, len(self.val_graphs))
+        for batch in self._batches(self.val_graphs, bs, False, drop_tail=False):
+            agg.append(eval_step(self.params, batch, apply_fn=self.apply_fn, cfg=self.cfg,
+                                 steps=steps, opts=self.opts, multiscale=self.multiscale,
+                                 device=self.device))
+            weights.append(float(batch.num_graphs))
         out = {}
+        w = np.asarray(weights, np.float64)
         for k in agg[0]:
             vals = np.asarray([m[k] for m in agg], np.float64)
             ok = np.isfinite(vals)
-            out[k] = float(vals[ok].mean()) if ok.any() else float("nan")
+            out[k] = (float((vals[ok] * w[ok]).sum() / w[ok].sum())
+                      if ok.any() else float("nan"))
         return out
-

@@ -2,8 +2,10 @@
 mswe_gnn_tpu/utils/metrics.py:15-75; the other metrics of that module are
 not ported yet).
 
-Rollouts are [N, 2, T] (single) or [B, N, 2, T] (batched); variable 0 is the
-water depth h, variable 1 is |q|. Padded nodes are masked out.
+Rollouts are [N, 2, T] (single) or [B, N, 2, T] (batched; a concat union's
+finest block reshaped per graph, as ``eval_step(per_graph=True)`` does);
+variable 0 is the water depth h, variable 1 is |q|. Padded nodes are masked
+out.
 """
 from __future__ import annotations
 

@@ -18,8 +18,13 @@ more, many read by none: reading-slot batches and their tails). The model on the
 CPU: rtol 1e-5, atol 1e-4 in float32 —
 cuBLAS sums the matmuls in another order. A train step (loss and
 gradients) on the card against the CPU: the loss within rtol 1e-5, every
-gradient leaf within 1e-4 * max|leaf| + 1e-6.
+gradient leaf within 1e-4 * max|leaf| + 1e-6. Concat unions: the ELL kernels
+bit-equal on a union of 4's own tables, ``DeviceConcatPlan`` on the card
+equal to the host ``concat_graphs``, and each graph of a union's rollout on
+the card against that graph's rollout on the CPU (the model's limits).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -29,7 +34,8 @@ from mswe_gnn_tpu_torch import tree_leaves, tree_to
 from mswe_gnn_tpu_torch.bench_problem import build_bench_sample
 from mswe_gnn_tpu_torch.data import dataset as port_dataset
 from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
-from mswe_gnn_tpu_torch.models import build_model
+from mswe_gnn_tpu_torch.graph import DeviceConcatPlan, concat_graphs, stack_graphs
+from mswe_gnn_tpu_torch.models import build_model, prepare_graph
 from mswe_gnn_tpu_torch.ops import band_hop as band_ops
 from mswe_gnn_tpu_torch.ops import hop as hop_ops
 from mswe_gnn_tpu_torch.training import train as port_train
@@ -246,3 +252,92 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=0)
     for a, b in zip(tree_leaves(grads), tree_leaves(want)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-6)
+
+
+# ---------------------------------------------------------------- concat unions
+
+@pytest.fixture(scope="module")
+def union_tables():
+    """The hop tables of a concat union of 4 copies of the small bench
+    graph (16x16, 3 scales): ``[(name, src_tab [Nd, D] int32, slot mask,
+    Ns, same_block)]`` for every processor scale and un-pool level."""
+    sample, _ = build_bench_sample(16, 16, 4)
+    union = concat_graphs([sample] * 4)
+    cfg, params, _ = build_model(
+        {"hid_features": 8, "K": 1}, num_node_features=union.x_static.shape[1]
+        + union.x_dynamic.shape[1], num_edge_features=union.edge_attr.shape[1], num_scales=3,
+        previous_t=3, device="cpu")
+    with torch.no_grad():
+        cache = prepare_graph(params, cfg, union).ell_cache
+    n = union.spec.node_counts
+    out = [(f"scale {i} Nd={n[i]}", srcs, mask, n[i], True)
+           for i, (_, mask, srcs, _, _) in enumerate(cache["scales"])]
+    out += [(f"un-pool Nd={n[lvl]} Ns={n[lvl + 1]}", usrc, umask, n[lvl + 1], False)
+            for lvl, (_, umask, usrc, _) in enumerate(cache["unpools"])]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_gradient,upwind", MODES)
+@pytest.mark.parametrize("case", range(5))
+def test_kernels_on_a_union_s_own_tables(cuda, union_tables, dtype, with_gradient, upwind,
+                                         case):
+    """The ELL forward and backward bit-equal to their plain versions on the
+    tables of a union of 4 (F=64), at every slot count up to the tables'
+    width."""
+    _, srcs, mask, n_src, same = union_tables[case]
+    g = torch.Generator().manual_seed(case)
+    n_dst, width = srcs.shape
+    dst = torch.randn(n_dst, 64, generator=g)
+    dst[torch.rand(n_dst, generator=g) < 0.3] = 0.0
+    src = None
+    if not same:
+        src = torch.randn(n_src, 64, generator=g)
+        src[torch.rand(n_src, generator=g) < 0.3] = 0.0
+    flux = torch.randn(n_dst, width, 64, generator=g) * mask[..., None]
+    dst = dst.to(cuda, dtype)
+    src = dst if same else src.to(cuda, dtype)
+    for degree in range(1, width + 1):
+        tab = srcs[:, :degree].contiguous().to(cuda)
+        s = flux[:, :degree].contiguous().to(cuda, dtype)
+        args = (dst, src, tab, s)
+        got = hop_ops.hop(*args, with_gradient=with_gradient, upwind=upwind)
+        assert_bit_equal(got, hop_ops.hop_reference(*args, with_gradient=with_gradient,
+                                                    upwind=upwind))
+        check_backward(args, with_gradient, upwind)
+
+
+def test_device_concat_plan_on_the_card(cuda):
+    records = generate_dataset(1, seed=0, nx=16, ny=16, num_scales=3, total_hours=12,
+                               substeps=8)
+    rec = records[0]
+    scalers = port_dataset.fit_dataset_scalers(records, {"area_scaler": "standard"})
+    spec = port_dataset.make_spec(rec.mesh, len(rec.mesh.ghosts.ghost_nodes), 8)
+    graphs = port_dataset.to_temporal_samples(port_dataset.process_record(rec, scalers), spec,
+                                              previous_t=2, rollout_steps=2)[:5]
+    stacked = stack_graphs([g.to(cuda) for g in graphs])
+    plan = DeviceConcatPlan(spec, 3)
+    for idx in ([0, 1, 2], [4, 4, 1]):
+        got = plan(stacked, idx)
+        want = concat_graphs([graphs[i] for i in idx]).to(cuda)
+        assert got.num_graphs == want.num_graphs == 3 and got.spec == want.spec
+        for f in dataclasses.fields(want):
+            w = getattr(want, f.name)
+            if isinstance(w, torch.Tensor):
+                a = getattr(got, f.name)
+                assert a.device.type == "cuda" and a.dtype == w.dtype and torch.equal(a, w), \
+                    f.name
+
+
+def test_union_rollout_on_the_card(cuda, small_problem):
+    g, cfg, params, apply_fn = small_problem
+    union = concat_graphs([g] * 4)
+    cs.reset_all_launches()
+    got = rollout(apply_fn, tree_to(params, cuda), cfg, union, steps=3)
+    assert got.shape == (union.num_nodes, 2, 3) and got.device.type == "cuda"
+    assert bool(torch.isfinite(got).all()) and bool((got >= 0).all())
+    assert cs.read_launches() == cs.rollout_launches(cfg, g.spec.tile(4), 3)
+    want = rollout(apply_fn, params, cfg, g, steps=3, device="cpu")
+    for i in range(4):
+        rows = cs.graph_rows(g.spec, 4, i, "cpu")
+        torch.testing.assert_close(got.cpu()[rows], want, rtol=1e-5, atol=1e-4)

@@ -13,6 +13,7 @@ import torch
 import chip_smoke as cs
 import kernel_ab
 from mswe_gnn_tpu_torch.bench_problem import build_bench_model, build_bench_sample
+from mswe_gnn_tpu_torch.graph import concat_graphs
 from mswe_gnn_tpu_torch.models import prepare_graph
 from mswe_gnn_tpu_torch.ops import band_hop as band_ops
 from mswe_gnn_tpu_torch.ops import build as kernel_build
@@ -184,3 +185,22 @@ def test_build_keeps_the_compiler_log_for_a_later_call(tmp_path, monkeypatch):
     again = kernel_build.build("hop")["hop"]
     assert "Used 7 registers" in first["log"] and again["log"] == first["log"]
     assert again["path"] == first["path"] and again["seconds"] == 0.0
+
+
+def test_union_launch_counts_and_graph_rows(bench32):
+    """The batched phases' expectations: a union of 4 (no band plan) trains
+    on 324 ELL forwards and 162 ELL backwards at the tiled shapes, and
+    ``graph_rows`` picks every graph's rows of the union in its own order."""
+    sample, banded, cfg, _ = bench32
+    union = concat_graphs([banded] * 4)
+    assert union.band_meta is None and union.spec == sample.spec.tile(4)
+    step = cs.train_launches(cfg, union.spec, union.band_meta, 6, True)
+    assert cs.by_kernel(step) == {"hop": 324, "hop_bwd": 162, "band_hop": 0, "band_hop_bwd": 0}
+    n0 = union.spec.node_counts[0]
+    assert step[("hop", n0, n0)] == 120 and step[("hop_bwd", n0, n0)] == 60
+    n2 = 20 * sample.spec.node_counts[2]
+    assert cs.rollout_launches(cfg, sample.spec.tile(20), 47)[("hop", n2, n2)] == 235
+    for g in range(4):
+        rows = cs.graph_rows(sample.spec, 4, g, "cpu")
+        assert torch.equal(union.x_static[rows], sample.x_static)
+        assert torch.equal(union.node_mask[rows], sample.node_mask)

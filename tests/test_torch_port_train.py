@@ -34,6 +34,7 @@ from mswe_gnn_tpu_torch import tree_leaves
 from mswe_gnn_tpu_torch.compat.jax_params import load_jax_params, to_numpy_tree
 from mswe_gnn_tpu_torch.data import dataset as port_dataset
 from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
+from mswe_gnn_tpu_torch.graph import stack_graphs
 from mswe_gnn_tpu_torch.models import build_model, msgnn as port_msgnn
 from mswe_gnn_tpu_torch.models.prepare import prepare_graph
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan as port_attach
@@ -279,14 +280,14 @@ def test_train_step_and_unported_paths_raise(small_data, monkeypatch):
         port_train.train_step(p, optimizer.init(p), cached, apply_fn=apply_fn, cfg=cfg,
                               rollout_steps=1, opts=opts, multiscale=True,
                               optimizer=optimizer, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="vmap"):
         port_train.Trainer(apply_fn, cfg, params, port_train.TrainerOptions(batch_size=2),
-                           train, val, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_train.Trainer(apply_fn, cfg, params, opts, train, val, device="cpu",
-                           checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError):
-        port_train.tune_batch_size(apply_fn, cfg, params, train, opts)
+                           train, val, device="cpu", batch_layout="vmap")
+    with pytest.raises(NotImplementedError, match="vmap"):
+        port_train.find_max_batch_size(apply_fn, cfg, params, train, opts)
+    with pytest.raises(NotImplementedError, match="vmap"):
+        port_train.eval_step(p, stack_graphs(val[:2]), apply_fn=apply_fn, cfg=cfg, steps=2,
+                             opts=opts, multiscale=True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     step_kw = dict(apply_fn=apply_fn, cfg=cfg, opts=opts, multiscale=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):        # no device given
