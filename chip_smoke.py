@@ -34,7 +34,8 @@ Phases, each printing its own lines:
 6. timing  -- runs last: every kernel at the bench shapes, on the bench
    graph's own tables and plans, and the ELL hop at the union shapes of
    phases 7 and 8 on the unions' own tables (forward and backward at b=4,
-   forward at b=20): kernel, L2 flushed, plain version, bound, the launch
+   forward at b=20): each case first held bit-equal to its plain version
+   on its own inputs, then kernel, L2 flushed, plain version, bound, the launch
    floor of the harness, each launch (block, grid, registers, warps an
    SM), and the launches of each shape on each path as phases 4, 5, 7 and
    8 counted them, with their sum of launches x time.
@@ -57,10 +58,13 @@ Phases, each printing its own lines:
    into a new Trainer (parameters and optimizer state bit-equal), fit one
    more epoch.
 
-Then one JSON line describing every kernel (``launches``: its launches on
-every path driven, each path counted from 0; ``launches_by_path`` by path),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
-exits non-zero without printing a result. It imports nothing of JAX.
+Then one JSON line describing every kernel. Its ``launches`` is a sum: the
+kernel's launches over every path driven (serving and train step at batch 1,
+serving at batch 4 and 20, train step at batch 4), each path counted from 0
+just before it runs; ``launches_by_path`` holds each path's own count, the
+figure to read for one path. Then the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
+non-zero without printing a result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -234,25 +238,35 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 class Checks:
-    """Worst error per kernel and dtype over the comparisons of phase 3."""
+    """Worst error per kernel and dtype over the comparisons of phase 3 and
+    of phase 6's bit check."""
 
     def __init__(self):
         self.worst = {}
         self.count = 0
 
-    def hold(self, kernel, case, dtype, mode, got, want):
+    def hold(self, kernel, case, dtype, mode, got, want, exact=False) -> float:
+        """Holds each output of ``got`` against ``want`` within
+        ``within_limit``, or bit for bit (NaN where NaN) with ``exact``;
+        -> the largest error."""
+        worst = 0.0
         for i, (a, b) in enumerate(zip(got, want)):
             if (a is None) != (b is None):
                 raise AssertionError(f"{kernel} {case}: output {i} present on one side only")
             if a is None:
                 continue
             ok, err = within_limit(a, b, dtype)
+            if exact:
+                ok = bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
             key = (kernel, str(dtype).replace("torch.", ""))
             self.worst[key] = max(self.worst.get(key, 0.0), err)
+            worst = max(worst, err)
             self.count += 1
             if not ok:
                 raise AssertionError(f"{kernel} disagrees with its plain version: {case} "
-                                     f"{dtype} {mode} output {i}, max|err| {err:.3e}")
+                                     f"{dtype} {mode} output {i}, max|err| {err:.3e}"
+                                     + (" (bits asked for)" if exact else ""))
+        return worst
 
     def max_err(self, kernel):
         return max(v for (k, _), v in self.worst.items() if k == kernel)
@@ -1207,9 +1221,11 @@ def phase_trainer() -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_timing(cases, flush, paths) -> dict:
-    """Times every case of ``timing_cases`` (kernel, L2 flushed, plain
-    version), with the launch floor before and after. ``paths`` maps each
+def phase_timing(cases, flush, paths, checks) -> dict:
+    """Holds every case of ``timing_cases`` bit-equal to its plain version on
+    the case's own inputs (into ``checks``; the union shapes are held here
+    and nowhere else), then times it (kernel, L2 flushed, plain version),
+    with the launch floor before and after. ``paths`` maps each
     path driven (``serving``, ``train_step``, the batched ones) to the
     launches the wrappers counted there by ``(kernel, Nd, Ns)``; each row
     carries the launches of its shape on every path, and each kernel gets
@@ -1217,11 +1233,19 @@ def phase_timing(cases, flush, paths) -> dict:
     floors = [launch_floor_ms()]
     rows = {kernel: [] for kernel in KERNELS}
     for c in cases:
+        got, want = c["run"](), c["plain"]()
+        err = checks.hold(c["kernel"], c["shape"], torch.bfloat16, "timing",
+                          got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,), exact=True)
+        del got, want
         row = time_fn(c["run"], c["plain"], flush)
+        row["max_abs_err"] = err
         row.update({k: v for k, v in c.items() if k not in ("run", "plain", "key")},
                    n_dst=c["key"][1], n_src=c["key"][2],
                    launches={path: counts[c["key"]] for path, counts in paths.items()})
         rows[c["kernel"]].append(row)
+    log(f"[timing] {len(cases)} cases held bit-equal to their plain versions on their own "
+        f"inputs")
     floors.append(launch_floor_ms())
     floor_ms = statistics.median(floors)
     log(f"[timing] launch floor (a one-element add, replayed in a CUDA graph as the kernels "
@@ -1245,8 +1269,9 @@ def phase_timing(cases, flush, paths) -> dict:
 
 def kernel_entry(name, source, replaces, max_err, rows, by_path):
     """A kernel's entry of the ``kernels`` line: ``launches`` is the sum of
-    its launches on every path driven (``by_path``: launches by kernel, each
-    path counted from 0), the times and the bound those of its first row."""
+    its launches over every path driven (``by_path``: launches by kernel,
+    each path counted from 0), kept per path in ``launches_by_path``; the
+    times and the bound are those of its first row."""
     head = rows[0]
     launches_by_path = {path: n[name] for path, n in by_path.items()}
     if not sum(launches_by_path.values()):
@@ -1288,7 +1313,7 @@ def main() -> None:
     paths = {"serving": serving["launches"], "train_step": train["launches"]}
     paths.update({f"serving_b{b}": counts for b, counts in batched["launches"].items()})
     paths[f"train_step_b{TRAIN_BATCH}"] = batched_train["launches"]
-    timing = phase_timing(cases, flush, paths)
+    timing = phase_timing(cases, flush, paths, checks)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
         kernel_entry("hop", SOURCES["hop"], "mswe_gnn_tpu/ops/pallas_hop.py:54",

@@ -11,9 +11,10 @@ so they are not the JAX package's numbers.
 ``build_bench_sample(band=True)`` attaches the band plan with its defaults,
 as bench.py:121-131 does; ``BenchTrainStep`` is the train step of
 bench.py:304-341 (``bench_training``): a 6-step pushforward with remat,
-``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``. A ``batch`` of b
-serves or trains ``concat_graphs([sample] * b)``, as bench.py:311-314 and
-:355-359 do (the union carries no band plan).
+``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``. The rollout problem
+at batch b is ``concat_graphs([sample] * b)``, made by the caller as
+bench.py:355-359 does; ``build_bench_train_step(batch=b)`` trains that union,
+as bench.py:311-314 does (the union carries no band plan).
 """
 from __future__ import annotations
 
@@ -39,11 +40,10 @@ NUM_SCALES, PREVIOUS_T = 3, 3
 TRAIN_ROLLOUT_STEPS = 6
 
 
-def build_bench_sample(nx=152, ny=152, T=48, band=False, batch=1):
+def build_bench_sample(nx=152, ny=152, T=48, band=False):
     """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
     ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take;
-    ``band`` attaches the band plan (``attach_band_plan`` defaults); a
-    ``batch`` > 1 gives the concat union of that many copies."""
+    ``band`` attaches the band plan (``attach_band_plan`` defaults)."""
     rng = np.random.default_rng(0)
     dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
     mesh = make_multiscale_grid(nx, ny, 100.0, NUM_SCALES, dem_fn, n_bc=4)
@@ -63,7 +63,7 @@ def build_bench_sample(nx=152, ny=152, T=48, band=False, batch=1):
                                  rollout_steps=-1)[0]
     if band:
         sample = attach_band_plan(sample)
-    return concat_graphs([sample] * batch), mesh
+    return sample, mesh
 
 
 def build_bench_model(sample, device=None):

@@ -419,12 +419,14 @@ class Trainer:
     """Curriculum fit, validation, early stopping, spike rollback,
     checkpoints and resume on one device (JAX train.py:382-735).
 
-    The graphs and a private copy of the parameters are moved to ``device``
-    (default: the GPU) once. A batch is a ``concat_graphs`` union of
-    ``opts.batch_size`` graphs, assembled on the device by a
-    ``DeviceConcatPlan`` over a ``stack_graphs`` copy of the sample list (the
-    same union, bit for bit), or on the host where the samples do not share
-    a spec. ``best_params`` is a copy
+    A private copy of the parameters is moved to ``device`` (default: the
+    GPU); the sample lists stay as given, and each is copied to the device
+    once, at its first epoch. A batch is a ``concat_graphs`` union of
+    ``opts.batch_size`` graphs: where the batch holds more than one graph and
+    the samples share a spec, the device holds one ``stack_graphs`` copy of
+    the list and a ``DeviceConcatPlan`` assembles each union from it (the
+    same union, bit for bit); otherwise it holds the graphs one by one, and a
+    batch of one is the resident graph itself. ``best_params`` is a copy
     taken at each improvement of ``opts.best_metric``; with
     ``checkpoint_dir`` it is also saved to ``<checkpoint_dir>/best_val``, the
     whole state is autosaved every ``checkpoint_every`` epochs, and a
@@ -450,8 +452,8 @@ class Trainer:
         self.opts = opts
         self.multiscale = multiscale
         self.params = clone_tree(tree_to(params, self.device))
-        self.train_graphs = [g.to(self.device) for g in train_graphs]
-        self.val_graphs = [g.to(self.device) for g in val_graphs]
+        self.train_graphs = list(train_graphs)
+        self.val_graphs = list(val_graphs)
         self.steps_per_epoch = max(1, len(train_graphs) // opts.batch_size)
         self.optimizer = make_optimizer(opts, self.steps_per_epoch)
         self.opt_state = self.optimizer.init(self.params)
@@ -469,25 +471,30 @@ class Trainer:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.curriculum = CurriculumController(opts, mode=curriculum_mode)
-        self._dev_stacked: Dict[int, tuple] = {}
+        self._resident: Dict[tuple, tuple] = {}
         self._dev_plans: Dict[tuple, DeviceConcatPlan] = {}
 
-    def _device_stacked(self, graphs) -> Optional[FloodGraph]:
-        """The ``stack_graphs`` copy of a sample list, built once; None when
-        the samples do not share a spec. The cache keeps the list itself, so
-        a reused ``id`` cannot hand out another list's copy."""
-        key = id(graphs)
-        hit = self._dev_stacked.get(key)
+    def _device_copy(self, graphs, batch_size: int):
+        """The device copy of a sample list for batches of ``batch_size``,
+        made once -> ``(stacked, each)``, one of them None: ``stacked`` is the
+        ``stack_graphs`` copy that ``DeviceConcatPlan`` gathers unions from
+        (batches of more than one graph over samples that share a spec),
+        ``each`` the graphs moved one by one. The cache keeps the list
+        itself, so a reused ``id`` cannot hand out another list's copy."""
+        key = (id(graphs), batch_size > 1)
+        hit = self._resident.get(key)
         if hit is None or hit[0] is not graphs:
             g0 = graphs[0]
-            ok = all(g.spec == g0.spec and g.previous_t == g0.previous_t
-                     and g.bc_kind == g0.bc_kind and (g.y is None) == (g0.y is None)
-                     and (g.y is None or g.y.shape == g0.y.shape)
-                     and (g.forcing is None) == (g0.forcing is None)
-                     for g in graphs)
-            hit = (graphs, stack_graphs(graphs) if ok else None)
-            self._dev_stacked[key] = hit
-        return hit[1]
+            stack = batch_size > 1 and len(graphs) > 1 and all(
+                g.spec == g0.spec and g.previous_t == g0.previous_t
+                and g.bc_kind == g0.bc_kind and (g.y is None) == (g0.y is None)
+                and (g.y is None or g.y.shape == g0.y.shape)
+                and (g.forcing is None) == (g0.forcing is None)
+                for g in graphs)
+            hit = ((graphs, stack_graphs(graphs).to(self.device), None) if stack
+                   else (graphs, None, [g.to(self.device) for g in graphs]))
+            self._resident[key] = hit
+        return hit[1], hit[2]
 
     def _device_plan(self, spec, b) -> DeviceConcatPlan:
         key = (spec, b)
@@ -583,14 +590,14 @@ class Trainer:
         idx = np.arange(len(graphs))
         if shuffle:
             self.rng.shuffle(idx)
-        stacked = self._device_stacked(graphs) if len(graphs) > 1 else None
+        stacked, each = self._device_copy(graphs, batch_size)
         if stacked is not None:
             def build(sel):
                 return self._device_plan(graphs[0].spec, len(sel))(
                     stacked, np.asarray(sel, np.int64))
         else:
             def build(sel):
-                return concat_graphs([graphs[j] for j in sel])
+                return concat_graphs([each[j] for j in sel])
         for i in range(0, len(idx) - batch_size + 1, batch_size):
             yield build(idx[i:i + batch_size])
         rem = len(idx) % batch_size

@@ -149,3 +149,23 @@ def test_tune_batch_size_stops_at_oom_and_reraises_other_errors(setup, monkeypat
     monkeypatch.setattr(port_train, "train_step", kernel_fails)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         port_train.tune_batch_size(apply_fn, cfg, params, train, opts, **kw)
+
+
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_trainer_holds_one_device_copy_of_the_samples(setup, batch_size):
+    """The sample lists stay as given; the device holds one copy of each:
+    the graphs one by one at batch 1 (a batch is the resident graph), one
+    ``stack_graphs`` copy that the unions are gathered from above it."""
+    train, val, cfg, params, apply_fn = setup
+    opts = port_train.TrainerOptions(**{**OPTS, "batch_size": batch_size})
+    t = port_train.Trainer(apply_fn, cfg, params, opts, train, val, device="cpu")
+    assert all(a is b for a, b in zip(t.train_graphs, train))
+    stacked, each = t._device_copy(t.train_graphs, batch_size)
+    assert t._device_copy(t.train_graphs, batch_size)[0] is stacked
+    batches = list(t._batches(t.train_graphs, batch_size, shuffle=False))
+    assert len(batches) == len(train) // batch_size
+    if batch_size == 1:
+        assert stacked is None and all(b is g for b, g in zip(batches, each))
+    else:
+        assert each is None and stacked.x_static.shape[0] == len(train)
+        assert all(b.num_graphs == batch_size for b in batches)
