@@ -57,11 +57,28 @@ Phases, each printing its own lines:
    and checkpoints in a temporary directory: fit 2 epochs, save, resume
    into a new Trainer (parameters and optimizer state bit-equal), fit one
    more epoch.
+10. cli -- the experiment CLI (``mswe_gnn_tpu_torch.main``) on
+   ``configs/accuracy_tri.yaml`` at full width (F=64, K=5, float32) with only
+   the corpus and the epochs cut (each cut printed), the mesh core built
+   with g++ at first use: (a) ``train`` for 2 epochs, every file it writes
+   there, a finite history, ELL forward and backward launched; (b) ``eval``
+   of that run's ``best``, its summary the training one within 1e-5; (c)
+   ``eval`` of the committed trained weights
+   (``results_repo/checkpoints/accuracy_tri_r5_torch/best``), a finite
+   summary. Launches are counted for each of the three runs. Then, with the
+   trained weights, each against the plain versions within phase 3's
+   float32 limit: the ELL forward and backward in every mode at each
+   ``(Nd, Ns)`` the three runs launched, on the tables of a union of the
+   run's own samples that gives that shape (a shape held nowhere fails the
+   phase); the full rollout of one test graph and of a union of
+   ``eval_batch_size`` test graphs; and the loss and gradients of one train
+   step on a union of ``batch_size`` training samples (phase 5's float32
+   limits).
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
-serving at batch 4 and 20, train step at batch 4), each path counted from 0
-just before it runs; ``launches_by_path`` holds each path's own count, the
+serving at batch 4 and 20, train step at batch 4, the CLI's train, eval and
+trained-weights eval), each path counted from 0 just before it runs; ``launches_by_path`` holds each path's own count, the
 figure to read for one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without printing a result. It imports nothing of JAX.
@@ -571,35 +588,35 @@ def hops_per_step(cfg, spec, band_meta=None) -> collections.Counter:
     return counts
 
 
-def bench_hop_cases(cache, spec, seed=1000, device="cuda") -> list:
-    """The rollout's ELL hops on the bench graph's own tables (the
-    ``prepare_graph`` cache: slot sources and slot masks): the processor hop
-    of every scale (gradient mode) and the two un-pool hops (no-gradient
-    mode), bf16. States are random with 30% dry rows, the flux random with
-    the masked slots zero. -> ``[(shape, (dst, src, tab, s), with_gradient,
-    same_block)]``."""
+def bench_hop_cases(cache, spec, seed=1000, device="cuda", dtype=torch.bfloat16) -> list:
+    """The rollout's ELL hops on a graph's own tables (the ``prepare_graph``
+    cache: slot sources and slot masks), by default the bench graph's: the
+    processor hop of every scale (gradient mode) and the un-pool hops
+    (no-gradient mode), in ``dtype``. States are random with 30% dry rows,
+    the flux random with the masked slots zero. -> ``[(shape, (dst, src,
+    tab, s), with_gradient, same_block)]``."""
     g = torch.Generator().manual_seed(seed)
+    tag = "bf16 bench table" if dtype == torch.bfloat16 else f"{str(dtype)[6:]} table"
 
     def state(n):
         x = torch.randn(n, FEAT, generator=g)
         x[torch.rand(n, generator=g) < 0.3] = 0.0
-        return x.to(device, torch.bfloat16)
+        return x.to(device, dtype)
 
     def flux(mask):
         m = (mask.detach().cpu() > 0).float()
-        return (torch.randn(*m.shape, FEAT, generator=g) * m[..., None]).to(device,
-                                                                              torch.bfloat16)
+        return (torch.randn(*m.shape, FEAT, generator=g) * m[..., None]).to(device, dtype)
 
     states = [state(n) for n in spec.node_counts]
     cases = []
     for i, (_, mask, srcs, _, _) in enumerate(cache["scales"]):
         n = spec.node_counts[i]
-        cases.append((f"same-block Nd={n} Ns={n} D={srcs.shape[1]} F={FEAT} bf16 bench table",
+        cases.append((f"same-block Nd={n} Ns={n} D={srcs.shape[1]} F={FEAT} {tag}",
                       (states[i], states[i], srcs.to(device).contiguous(), flux(mask)),
                       True, True))
     for lvl, (_, umask, usrc, _) in enumerate(cache["unpools"]):
         nd, ns = spec.node_counts[lvl], spec.node_counts[lvl + 1]
-        cases.append((f"un-pool Nd={nd} Ns={ns} D={usrc.shape[1]} F={FEAT} bf16 bench table",
+        cases.append((f"un-pool Nd={nd} Ns={ns} D={usrc.shape[1]} F={FEAT} {tag}",
                       (states[lvl], states[lvl + 1], usrc.to(device).contiguous(),
                        flux(umask)), False, False))
     return cases
@@ -1220,6 +1237,282 @@ def phase_trainer() -> dict:
     return {"history": history}
 
 
+# ---------------------------------------------------------------- phase 10
+CLI_CONFIG = "configs/accuracy_tri.yaml"
+CLI_CUTS = {("synthetic_data", "n_sims"): 12, ("trainer_options", "max_epochs"): 2,
+            ("trainer_options", "curriculum_epoch"): 1}
+TRAINED_WEIGHTS = "results_repo/checkpoints/accuracy_tri_r5_torch/best"
+TIMING_KEYS = ("mean_prediction_time_s", "speed_up_vs_synthetic_solver_mean",
+               "speed_up_vs_synthetic_solver_std")
+
+
+def cli_run(args) -> collections.Counter:
+    """``mswe_gnn_tpu_torch.main.main(args)`` on the card, its launches
+    counted from 0 -> the launches by ``(kernel, Nd, Ns)``."""
+    from mswe_gnn_tpu_torch import main as cli
+
+    reset_all_launches()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"main({args}) returned {rc}")
+    return read_launches()
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def hold_path_shapes(checks, path, cfg, params, samples, counts, most, device="cuda") -> dict:
+    """Holds the ELL forward (and, where the path ran it, the backward) in
+    float32 and in every mode at each ``(Nd, Ns)`` that ``path`` launched
+    (``counts``), on the tables of a union of the path's own ``samples``
+    whose size gives that shape (each union of 1 to ``most`` graphs whose
+    finest-scale hop was launched, its shapes from ``hops_per_step`` of the
+    tiled spec), against the plain versions within ``within_limit``
+    (into ``checks``). Raises if a launched shape is held nowhere. -> the
+    union sizes built, each with the shapes held on it."""
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.models import prepare_graph
+
+    launched = {key for key, n in counts.items() if n}
+    spec, held, sizes = samples[0].spec, set(), {}
+    worst = {"hop": 0.0, "hop_bwd": 0.0}
+    for b in range(1, most + 1):
+        # a union of b graphs ran where its finest scale's hop did (a coarser
+        # scale's rows may equal another union's finer ones)
+        n0 = b * spec.node_counts[0]
+        if ("hop", n0, n0) not in launched:
+            continue
+        fwd = launched & set(hops_per_step(cfg, spec.tile(b)))
+        if b > len(samples):
+            raise AssertionError(f"[cli] {path}: a union of {b} of {len(samples)} samples")
+        graph = (samples[0] if b == 1 else concat_graphs(samples[:b])).to(device)
+        with torch.no_grad():
+            cache = prepare_graph(params, cfg, graph).ell_cache
+        sizes[b] = []
+        for name, args, _, _ in bench_hop_cases(cache, graph.spec, seed=4000 + b,
+                                                device=device, dtype=torch.float32):
+            nd, ns = args[0].shape[0], args[1].shape[0]
+            if ("hop", nd, ns) not in fwd:
+                continue
+            backward = ("hop_bwd", nd, ns) in launched
+            table = hop_ops.out_slot_table(args[2], ns, slot_mask_of(args[3]))
+            g = upstream(4100 + nd, args[0])
+            case = f"{path} union of {b} {name}"
+            for mode, (grad, up) in MODES.items():
+                worst["hop"] = max(worst["hop"], checks.hold(
+                    "hop", case, torch.float32, mode,
+                    (hop_ops.hop(*args, with_gradient=grad, upwind=up),),
+                    (hop_ops.hop_reference(*args, with_gradient=grad, upwind=up),)))
+                if backward:
+                    worst["hop_bwd"] = max(worst["hop_bwd"], checks.hold(
+                        "hop_bwd", case, torch.float32, mode,
+                        hop_ops.hop_backward(*args, g, *table, grad, up),
+                        hop_ops.hop_backward_reference(*args, g, *table, grad, up)))
+            held |= {("hop", nd, ns)} | ({("hop_bwd", nd, ns)} if backward else set())
+            sizes[b].append((nd, ns, backward))
+    missing = launched - held
+    if missing:
+        raise AssertionError(f"[cli] {path}: launched shapes held nowhere: {sorted(missing)}")
+    log(f"[cli] {path}: every launched shape held against the plain versions in float32, "
+        "3 modes, on the path's own union tables: "
+        + "; ".join(f"union of {b}: " + ", ".join(
+            f"({nd}, {ns}){' +bwd' if bwd else ''}" for nd, ns, bwd in shapes)
+            for b, shapes in sizes.items())
+        + f"; max|err| forward {worst['hop']:.3e}, backward {worst['hop_bwd']:.3e}")
+    return sizes
+
+
+def hold_union_rollout(cfg, params, apply_fn, graphs) -> float:
+    """The full rollout of the ``concat_graphs`` union of ``graphs`` through
+    the kernels against the same rollout through the plain hops, within
+    ``within_limit`` in float32 -> the largest difference."""
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+
+    union = concat_graphs(graphs)
+    steps = int(union.y.shape[-1])
+    got = rollout(apply_fn, params, cfg, union, steps, device="cuda")
+    with plain_hops():
+        want = rollout(apply_fn, params, cfg, union, steps, device="cuda")
+    torch.cuda.synchronize()
+    check_rollout(f"[cli] rollout of a union of {len(graphs)}", got, union.to("cuda"), steps)
+    ok, err = within_limit(got, want, torch.float32)
+    if not ok:
+        raise AssertionError(f"[cli] the rollout of a union of {len(graphs)} through the "
+                             f"kernels differs from the plain hops: max|err| {err:.3e}")
+    return err
+
+
+def hold_train_union_grads(cfg, params, apply_fn, samples, opts, rollout_steps) -> dict:
+    """The loss and gradients of one train step on a ``concat_graphs`` union
+    of ``opts.batch_size`` training samples, float32, through the kernels
+    against autograd of the plain hops, at phase 5's float32 limits."""
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.training.train import loss_and_grads
+
+    union = concat_graphs(samples[:opts.batch_size]).to("cuda")
+    if union.num_graphs != opts.batch_size:
+        raise AssertionError(f"[cli] a training union of {union.num_graphs}")
+    args = (apply_fn, params, cfg, union, rollout_steps, opts, True)
+    kernels = loss_and_grads(*args)
+    with plain_hops():
+        plain = loss_and_grads(*args)
+    r = compare_grads(*kernels, *plain)
+    log(f"[cli] one train step on a union of {opts.batch_size} ({rollout_steps}-step "
+        f"pushforward, remat {opts.remat}, float32), kernels vs plain hops: loss rel diff "
+        f"{r['loss_rel']:.3e}, gradient cosine {r['cos']:.8f}, worst leaf "
+        f"max|diff|/max|leaf| {r['worst_leaf']:.3e} (limits: loss 1e-6, every leaf "
+        f"max|diff| <= 1e-4 max|leaf| + 1e-12)")
+    if not (r["loss_rel"] <= 1e-6 and r["leaves_within"]):
+        raise AssertionError("[cli] float32 train-step gradients on the training union "
+                             "disagree with the plain hops")
+    return r
+
+
+def phase_cli(smi, checks) -> dict:
+    """The experiment CLI at full width on a cut accuracy_tri corpus: train,
+    eval of the new checkpoint, eval of the trained weights, each on the
+    GPU; then the kernels at every shape these runs launched (into
+    ``checks``), a rollout of an eval union and a train step's gradients on
+    a training union, each against the plain hops."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from mswe_gnn_tpu_torch import config as config_lib
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch import native
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CLI_CONFIG)) as f:
+        cfg = yaml.safe_load(f)
+    for (group, key), value in CLI_CUTS.items():
+        log(f"[cli] cut: {group}.{key} {cfg[group][key]} -> {value}")
+        cfg[group][key] = value
+    log(f"[cli] host tools: g++ {shutil.which('g++')}, scipy "
+        f"{'present' if importlib.util.find_spec('scipy') else 'absent'}")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"[cli] mesh core built with g++ {' '.join(native.CXX_FLAGS)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
+    old_cache = os.environ.get("MSWE_DATA_CACHE")
+    with tempfile.TemporaryDirectory(prefix="smoke_cli_", dir=kernel_build.BUILD_DIR) as tmp:
+        os.environ["MSWE_DATA_CACHE"] = os.path.join(tmp, "cache")
+        try:
+            cfg_path = os.path.join(tmp, "accuracy_tri_cut.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            train_dir = os.path.join(tmp, "train")
+
+            # (a) train
+            t0 = time.perf_counter()
+            train_counts = cli_run(["train", "--config", cfg_path, "--out", train_dir])
+            train_s = time.perf_counter() - t0
+            missing = [p for p in ("best/params.npz", "best/meta.json", "last/params.npz",
+                                   "last/meta.json", "autosave/params.npz",
+                                   "autosave/opt_state.npz", "autosave/meta.json",
+                                   "autosave/heartbeat", "autosave/best_val/params.npz",
+                                   "metrics.jsonl", "metrics.csv", "config.json",
+                                   "summary.json")
+                       if not os.path.exists(os.path.join(train_dir, p))]
+            if missing:
+                raise AssertionError(f"[cli] train wrote no {missing}")
+            history = read_json(os.path.join(train_dir, "best", "meta.json"))["history"]
+            if ([r["epoch"] for r in history] != [0, 1]
+                    or not all(math.isfinite(r["train_loss"]) for r in history)):
+                raise AssertionError(f"[cli] history {history}")
+            launched = by_kernel(train_counts)
+            if not (launched["hop"] and launched["hop_bwd"]):
+                raise AssertionError(f"[cli] train launched {launched}")
+            train_summary = read_json(os.path.join(train_dir, "summary.json"))
+            log(f"[cli] train: {train_s:.1f} s in all; epochs "
+                + ", ".join(f"{r['epoch']} (rollout_steps {r['rollout_steps']}, "
+                            f"train_loss {r['train_loss']:.6f}, "
+                            f"{r['epoch_time']:.2f} s)" for r in history)
+                + f"; launched {launched}; every file written")
+
+            # (b) eval of the new checkpoint
+            eval_counts = cli_run(["eval", "--config", cfg_path, "--ckpt",
+                                   os.path.join(train_dir, "best"), "--out",
+                                   os.path.join(tmp, "eval")])
+            eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
+            worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
+                        if k not in TIMING_KEYS)
+            if worst >= 1e-5:
+                raise AssertionError(f"[cli] eval {eval_summary} != train {train_summary}")
+            log(f"[cli] eval of the new best: the training summary within {worst:.2e}; "
+                f"launched {by_kernel(eval_counts)}")
+
+            # (c) eval of the committed trained weights
+            trained_counts = cli_run(["eval", "--config", cfg_path, "--ckpt",
+                                      os.path.join(root, TRAINED_WEIGHTS), "--out",
+                                      os.path.join(tmp, "trained")])
+            trained = read_json(os.path.join(tmp, "trained", "summary.json"))
+            if not all(math.isfinite(v) for v in trained.values()):
+                raise AssertionError(f"[cli] trained-weights summary {trained}")
+
+            # the kernels at the shapes of the three runs, on their own unions
+            full = config_lib.with_defaults(cfg)
+            train, _, test, _, _ = cli.prepare_data(full)
+            mcfg, params, apply_fn = cli.build_experiment_model(full, test[0], device=device)
+            params = cli.restore_weights(os.path.join(root, TRAINED_WEIGHTS), params)
+            opts = cli.trainer_options(full)
+            most = max(opts.batch_size, full["trainer_options"]["eval_batch_size"])
+            for path, samples, counts in (("cli_train", train, train_counts),
+                                          ("cli_eval", test, eval_counts),
+                                          ("cli_eval_trained", test, trained_counts)):
+                hold_path_shapes(checks, path, mcfg, params, samples, counts, most)
+            eval_b = full["trainer_options"]["eval_batch_size"]
+            union_err = hold_union_rollout(mcfg, params, apply_fn, test[:eval_b])
+            grads = hold_train_union_grads(mcfg, params, apply_fn, train, opts,
+                                           history[-1]["rollout_steps"])
+
+            # one test graph's full rollout: kernels against the plain hops
+            steps = int(test[0].y.shape[-1])
+            got = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
+            with plain_hops():
+                want = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
+            torch.cuda.synchronize()
+            check_rollout("[cli] trained-weights rollout", got, test[0].to(device), steps)
+            ok, err = within_limit(got, want, torch.float32)
+            if not ok:
+                raise AssertionError(f"[cli] trained-weights rollout through the kernels "
+                                     f"differs from the plain hops: max|err| {err:.3e}")
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("[cli] TF32 was turned on on the float32 CLI path")
+        finally:
+            if old_cache is None:
+                os.environ.pop("MSWE_DATA_CACHE", None)
+            else:
+                os.environ["MSWE_DATA_CACHE"] = old_cache
+    log(f"[cli] trained weights ({TRAINED_WEIGHTS}) on the cut corpus: test_CSI_005 "
+        f"{trained['test_CSI_005']:.4f}, test_MAE_WD {trained['test_MAE_WD']:.4f}, "
+        f"mean_prediction_time_s {trained['mean_prediction_time_s']:.4f} "
+        f"(eval_batch_size {full['trainer_options']['eval_batch_size']}); "
+        f"launched {by_kernel(trained_counts)}")
+    log(f"[cli] one test graph's {steps}-step rollout through the kernels vs the plain "
+        f"hops: max|err| {err:.3e}; the same for the union of test[:{eval_b}]: "
+        f"{union_err:.3e} (limit 1e-6 (1 + |ref|)); wet share "
+        f"{float((got[:, 0] > 0.05).float().mean()):.3f}")
+    log(f"[cli] summary: train epoch times "
+        + ", ".join(f"{r['epoch_time']:.2f}" for r in history)
+        + f" s; eval mean_prediction_time_s {trained['mean_prediction_time_s']:.4f}; "
+        f"{smi}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"cli_train": train_counts, "cli_eval": eval_counts,
+                         "cli_eval_trained": trained_counts},
+            "epoch_s": [r["epoch_time"] for r in history], "trained": trained,
+            "union_rollout_err": union_err, "train_union_grads": grads}
+
+
 # ---------------------------------------------------------------- phase 6
 def phase_timing(cases, flush, paths, checks) -> dict:
     """Holds every case of ``timing_cases`` bit-equal to its plain version on
@@ -1303,6 +1596,7 @@ def main() -> None:
     batched = phase_batched_serving(sample, cfg, params, apply_fn, serving)
     batched_train = phase_batched_train(banded, sample, cfg, params, apply_fn)
     phase_trainer()
+    cli = phase_cli(smi, checks)
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -1313,6 +1607,7 @@ def main() -> None:
     paths = {"serving": serving["launches"], "train_step": train["launches"]}
     paths.update({f"serving_b{b}": counts for b, counts in batched["launches"].items()})
     paths[f"train_step_b{TRAIN_BATCH}"] = batched_train["launches"]
+    paths.update(cli["launches"])
     timing = phase_timing(cases, flush, paths, checks)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
@@ -1333,6 +1628,9 @@ def main() -> None:
         k["train_step_ms"] = train["step_ms"]
     for k in kernels[:2]:
         k[f"train_step_b{TRAIN_BATCH}_ms"] = batched_train["step_ms"]
+        k["cli_epoch_s"] = cli["epoch_s"]
+    kernels[0]["cli_trained_eval"] = {key: cli["trained"][key] for key in (
+        "test_CSI_005", "test_MAE_WD", "mean_prediction_time_s")}
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

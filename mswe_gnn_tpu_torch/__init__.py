@@ -5,12 +5,15 @@ A port of the JAX package ``mswe_gnn_tpu`` beside it, which stays the
 reference the port is tested against. Host-side graph building is numpy, the
 models are plain functions on tensors, and the SWE-GNN hop and its gradient
 run in CUDA kernels written for Hopper (``ops/csrc/``: the ELL hop and the
-banded hop, forward and backward). This package imports torch, numpy and
-the standard library only.
+banded hop, forward and backward); triangulated meshes come from the C++
+mesh core of ``native/``, built at first use (``native.py``). This package
+imports torch, numpy, ``yaml`` (the experiment configs) and the standard
+library only.
 
 Batches are disconnected unions of graphs (``graph.concat_graphs``).
 
-Entry points (``models.build_model``, ``training.rollout.rollout``,
+Entry points (``main`` -- the ``train``/``eval`` CLI --,
+``models.build_model``, ``training.rollout.rollout``,
 ``training.train.Trainer``, ``train_step``, ``eval_step``,
 ``tune_batch_size``) run on the GPU
 unless the caller passes ``device="cpu"`` (or a graph on the CPU); without a

@@ -1,9 +1,10 @@
 """End-to-end synthetic dataset generation (mesh + simulation + record).
 
-Port of the grid path of mswe_gnn_tpu/data/synthetic.py: regular multiscale
-grid meshes, random cosine-mode terrain, Weibull hydrographs and the
-diffusive-wave solver of data/simulate.py. Triangulated meshes and storm
-forcing wait for ports of data/triangulate.py and the storm-field generator.
+Port of mswe_gnn_tpu/data/synthetic.py: regular multiscale grid meshes or
+random-polygon triangulated hierarchies (data/triangulate.py), random
+cosine-mode terrain, Weibull hydrographs and the diffusive-wave solver of
+data/simulate.py. Storm forcing waits for a port of the storm-field
+generator and raises.
 """
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ from mswe_gnn_tpu_torch.data.meshing import (
 from mswe_gnn_tpu_torch.data.simulate import (
     random_dem_fn, random_hydrograph, run_diffusive_wave,
 )
+from mswe_gnn_tpu_torch.data.triangulate import triangulated_hierarchy
+
+# The JAX package's GENERATOR_VERSION (bumped when generated records change
+# meaning); main._generate_cached keys its disk cache on it.
+# v2: BC/forcing series are zero-order-hold aligned — column t holds the
+# forcing of the interval (t, t+1] (see generate_simulation_record).
+GENERATOR_VERSION = 2
 
 
 def make_multiscale_grid(nx: int, ny: int, dx: float, num_scales: int,
@@ -39,6 +47,27 @@ def make_multiscale_grid(nx: int, ny: int, dx: float, num_scales: int,
         f = 2 ** s
         meshes.append(grid_mesh(max(nx // f, 1), max(ny // f, 1), dx * f, dem_fn))
     return stack_meshes(meshes, ghosts=ghosts)
+
+
+def make_multiscale_tri(rng: np.random.Generator, dem_fn, num_scales: int,
+                        avg_radius: float, target_edge: float,
+                        n_bc: int = 2, type_bc: int = 2,
+                        with_dike: bool = False) -> MultiscaleMesh:
+    """Random-polygon triangulated hierarchy with ghost cells
+    (the reference's MeshKernel path, graph_creation.py:473-528)."""
+    meshes = triangulated_hierarchy(rng, dem_fn, num_scales=num_scales,
+                                    avg_radius=avg_radius,
+                                    target_edge=target_edge,
+                                    with_dike=with_dike)
+    base = meshes[0]
+    # BC faces: boundary cells nearest a random boundary location
+    # (reference dhydro_utils.py:134-150)
+    bfaces = base.boundary_faces
+    anchor = bfaces[int(rng.integers(0, len(bfaces)))]
+    d = np.linalg.norm(base.face_xy[bfaces] - base.face_xy[anchor], axis=1)
+    bc_faces = np.sort(bfaces[np.argsort(d)[:n_bc]]).astype(np.int64)
+    finest, ghosts = add_ghost_cells(base, bc_faces, type_bc=type_bc)
+    return stack_meshes([finest] + meshes[1:], ghosts=ghosts)
 
 
 def _strip_ghosts(mesh_with_ghosts: Mesh, n_ghost: int) -> Mesh:
@@ -72,19 +101,23 @@ def generate_simulation_record(
     mesh_type: str = "grid",
     storm: bool = False,
 ) -> SimulationRecord:
-    """One full synthetic simulation on a multiscale grid mesh; the same
-    record as the JAX package's for the same arguments."""
-    if mesh_type == "triangulated":
-        raise NotImplementedError(
-            "mesh_type='triangulated' needs data/triangulate.py, not ported yet")
-    if mesh_type != "grid":
+    """One full synthetic simulation on a multiscale mesh; the same record
+    as the JAX package's for the same arguments.
+
+    ``mesh_type``: 'grid' (regular quad cells) or 'triangulated' (random
+    irregular polygon + constrained Delaunay hierarchy)."""
+    if mesh_type not in ("grid", "triangulated"):
         raise ValueError(f"unknown mesh_type {mesh_type!r}")
     if storm:
         raise NotImplementedError("storm forcing is not ported yet")
 
     rng = np.random.default_rng(seed)
     dem_fn = random_dem_fn(rng, extent=nx * dx, relief=4.0)
-    mesh = make_multiscale_grid(nx, ny, dx, num_scales, dem_fn, n_bc=n_bc)
+    if mesh_type == "grid":
+        mesh = make_multiscale_grid(nx, ny, dx, num_scales, dem_fn, n_bc=n_bc)
+    else:
+        mesh = make_multiscale_tri(rng, dem_fn, num_scales, avg_radius=nx * dx / 2.0,
+                                   target_edge=dx, n_bc=n_bc)
     ghosts = mesh.ghosts
     finest = mesh.meshes[0]
 

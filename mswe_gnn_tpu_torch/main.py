@@ -1,0 +1,379 @@
+"""Experiment CLI: config -> data -> train -> evaluate -> report (port of
+mswe_gnn_tpu/main.py, modes ``train`` and ``eval``):
+
+  python3 -m mswe_gnn_tpu_torch.main train --config configs/synthetic.yaml --out runs/x
+  python3 -m mswe_gnn_tpu_torch.main eval  --config ... --ckpt runs/x/best --out runs/x_eval
+
+Runs on the GPU; ``--device cpu`` runs on the CPU, and without a GPU and
+without ``--device`` it raises. Data comes from the built-in synthetic
+generator (``synthetic_data`` config group; grid or triangulated meshes),
+cached as ``.npz`` under ``MSWE_DATA_CACHE`` (default ``runs/data_cache``).
+
+Not ported, and raising: ``sweep`` (wandb), the reference-pickle and
+map-NetCDF data paths (``dataset_folder``, ``map_folder``), more than one
+device (a ``parallel`` block with data x graph > 1), and the report figures.
+Checkpoints are the port's npz format (training/checkpoint.py); an orbax
+checkpoint of the JAX package is converted first (tests/torch_port_convert.py).
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from mswe_gnn_tpu_torch import config as config_lib
+from mswe_gnn_tpu_torch import resolve_device
+from mswe_gnn_tpu_torch.data.dataset import (fit_dataset_scalers, make_spec,
+                                             process_record, to_temporal_samples,
+                                             union_spec)
+from mswe_gnn_tpu_torch.data.npz_store import load_records, record_arrays, save_records
+from mswe_gnn_tpu_torch.data.synthetic import GENERATOR_VERSION, generate_dataset
+from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
+from mswe_gnn_tpu_torch.models import build_model, count_params
+from mswe_gnn_tpu_torch.training.checkpoint import restore_params_only, save_checkpoint
+from mswe_gnn_tpu_torch.training.rollout import rollout
+from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
+from mswe_gnn_tpu_torch.utils.analysis import SpatialAnalysis
+from mswe_gnn_tpu_torch.utils.logging import MetricLogger
+
+EXIT_RELAUNCH = 75      # --epoch-budget spent: relaunch to resume from the autosave
+
+
+def _generate_cached(sd: Dict, temporal_res: float):
+    """Synthetic records with a content-keyed ``.npz`` disk cache (the JAX
+    package's key; the cache directory is ``MSWE_DATA_CACHE``, default
+    ``runs/data_cache``; delete it to invalidate). Each writer writes its own
+    temporary file and moves it into place atomically."""
+    key_src = json.dumps({**sd, "temporal_res": temporal_res,
+                          "gen_version": GENERATOR_VERSION}, sort_keys=True)
+    cache_dir = os.environ.get("MSWE_DATA_CACHE", "runs/data_cache")
+    path = os.path.join(cache_dir,
+                        hashlib.sha256(key_src.encode()).hexdigest()[:16] + ".npz")
+    if os.path.exists(path):
+        return load_records(path)
+    records = generate_dataset(
+        sd["n_sims"], seed=sd.get("seed", 0), nx=sd["nx"], ny=sd["ny"],
+        dx=sd.get("dx", 100.0), num_scales=sd["num_scales"],
+        total_hours=sd["total_hours"], temporal_res=temporal_res,
+        n_bc=sd.get("n_bc", 2), substeps=sd.get("substeps", 20),
+        mesh_type=sd.get("mesh_type", "grid"),
+        peak_discharge=float(sd.get("peak_discharge", 150.0)),
+        storm=bool(sd.get("storm_forcing", False)))
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        save_records(tmp, records)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return records
+
+
+def corpus_digest(records: Sequence) -> str:
+    """sha256 over every mesh array and the wd, vx, vy and bc_per_length
+    series of ``records`` (key, dtype, shape and bytes of each, in order):
+    equal digests mean the same corpus bit for bit."""
+    h = hashlib.sha256()
+    for i, rec in enumerate(records):
+        for key, arr in record_arrays(rec, f"r{i}/").items():
+            arr = np.ascontiguousarray(arr)
+            h.update(f"{key}|{arr.dtype.str}|{arr.shape}|".encode())
+            h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _solver_label(cfg: Dict) -> str:
+    """Which solver produced the test records' ``solver_seconds``: real
+    D-HYDRO wall times ('dhydro') for map-NetCDF/pickle data, the built-in
+    generator ('synthetic_solver', NOT comparable with the reference's
+    speed-ups) otherwise."""
+    dp = cfg.get("dataset_parameters", {})
+    return ("dhydro" if dp.get("map_folder") or dp.get("dataset_folder")
+            else "synthetic_solver")
+
+
+def prepare_data(cfg: Dict) -> Tuple[List[FloodGraph], List[FloodGraph],
+                                     List[FloodGraph], Dict, object]:
+    """Build train/val/test temporal datasets (reference main.py:26-56),
+    from the synthetic generator: the last 20% of the records are the test
+    split, and a seeded permutation of the rest gives validation and
+    training."""
+    sd = cfg["synthetic_data"]
+    dp = cfg["dataset_parameters"]
+    tdp = cfg["temporal_dataset_parameters"]
+    for key in ("dataset_folder", "map_folder"):
+        if dp.get(key):
+            raise NotImplementedError(
+                f"dataset_parameters.{key}: the reference-pickle and map-NetCDF data "
+                "paths are not ported; the port reads the synthetic_data group only")
+    rng = np.random.default_rng(dp.get("seed", 0))
+    records = _generate_cached(sd, dp["temporal_res"])
+
+    n = len(records)
+    n_test = max(1, int(round(n * 0.2)))
+    test_records = records[-n_test:]
+    pool = records[:-n_test]
+    n_val = max(1, int(round(len(pool) * dp.get("val_prcnt", 0.25))))
+    perm = rng.permutation(len(pool))
+    val_records = [pool[i] for i in perm[:n_val]]
+    train_records = [pool[i] for i in perm[n_val:]]
+
+    scalers = fit_dataset_scalers(train_records, cfg["scalers"])
+    feats = dict(node_features=cfg["selected_node_features"],
+                 edge_features=cfg["selected_edge_features"],
+                 slope_method=dp.get("slope_method", "edge"))
+    # padded over ALL records, so that every sample shares one spec
+    spec = union_spec([
+        make_spec(r.mesh, len(r.mesh.ghosts.ghost_nodes),
+                  pad_multiple=sd.get("pad_multiple", 64))
+        for r in records])
+
+    def build(records_, rollout_steps, params=None):
+        params = params if params is not None else tdp
+        out = []
+        for r in records_:
+            proc = process_record(r, scalers, **feats)
+            out += to_temporal_samples(
+                proc, spec, previous_t=params["previous_t"],
+                rollout_steps=rollout_steps,
+                time_start=params.get("time_start", 0),
+                time_stop=params.get("time_stop", -1))
+        return out
+
+    train = build(train_records, tdp["rollout_steps"])
+    val = build(val_records, -1)     # full-rollout validation (reference train.py:157)
+    # test windowing falls back to train params minus rollout_steps
+    # (reference utils/dataset.py:547-557)
+    test_params = dict(config_lib.temporal_test_parameters(cfg),
+                       previous_t=tdp["previous_t"])
+    test = build(test_records, -1, params=test_params)
+    return train, val, test, scalers, test_records
+
+
+def build_experiment_model(cfg: Dict, sample: FloodGraph, device=None):
+    """(model cfg, parameters on ``device``, apply) for the ``models`` group;
+    the number of scales comes from the data (reference main.py:60)."""
+    tdp = cfg["temporal_dataset_parameters"]
+    n_forcing = sample.forcing.shape[1] if sample.forcing is not None else 0
+    return build_model(
+        cfg["models"],
+        num_node_features=(sample.x_static.shape[1] + n_forcing
+                           + sample.x_dynamic.shape[1]),
+        num_edge_features=sample.edge_attr.shape[1],
+        num_scales=sample.spec.num_scales,
+        previous_t=tdp["previous_t"], device=device)
+
+
+def trainer_options(cfg: Dict) -> TrainerOptions:
+    to, lr = cfg["trainer_options"], cfg["lr_info"]
+    return TrainerOptions(
+        type_loss=to["type_loss"], only_where_water=to["only_where_water"],
+        batch_size=to["batch_size"], conservation=to["conservation"],
+        velocity_scaler=to["velocity_scaler"],
+        curriculum_epoch=to["curriculum_epoch"], patience=to["patience"],
+        max_epochs=to["max_epochs"],
+        best_metric=to.get("best_metric", "val_CSI_005"),
+        watch_every=int(to.get("watch_every", 0)),
+        remat=bool(to.get("remat", False)),
+        max_rollout_steps=cfg["temporal_dataset_parameters"]["rollout_steps"],
+        learning_rate=lr["learning_rate"], weight_decay=lr["weight_decay"],
+        gamma=lr["gamma"], step_size=lr["step_size"])
+
+
+def restore_weights(path: str, params_template):
+    """The parameters of the port's checkpoint ``path``. An orbax checkpoint
+    of the JAX package raises: convert it first."""
+    for where in (path, os.path.join(path, "params")):
+        if os.path.exists(os.path.join(where, "_CHECKPOINT_METADATA")):
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint of the JAX package; the port reads its own "
+                "npz checkpoints only. Convert it with tests/torch_port_convert.py "
+                "(python3 -m tests.torch_port_convert SRC DST).")
+    return restore_params_only(path, params_template)
+
+
+def split_union(pred: np.ndarray, spec, b: int) -> List[np.ndarray]:
+    """[N_tiled, 2, T] union prediction -> b per-graph [N, 2, T]."""
+    base_counts = [c // b for c in spec.node_counts]
+    ptr = spec.node_ptr
+    outs = []
+    for g_ in range(b):
+        parts = [pred[ptr[s] + g_ * base_counts[s]: ptr[s] + (g_ + 1) * base_counts[s]]
+                 for s in range(spec.num_scales)]
+        outs.append(np.concatenate(parts, axis=0))
+    return outs
+
+
+def evaluate(apply_fn, model_cfg, params, test: List[FloodGraph],
+             numerical_times: Optional[List[float]] = None,
+             solver_label: str = "solver", eval_batch_size: int = 1,
+             device=None) -> Dict:
+    """Timed full-rollout test evaluation + spatial analysis
+    (reference main.py:138-166); draws no figures.
+
+    ``eval_batch_size`` > 1 rolls out ``concat_graphs`` unions of that many
+    test graphs and attributes elapsed/b to each simulation; per-graph
+    predictions and metrics are those of batch 1 (a disconnected union). A
+    warm-up rollout runs on the first graph and on each union size first,
+    outside the timing; a timing ends when the prediction is back on the
+    host, after the device is done."""
+    device = resolve_device(device)
+    steps = int(test[0].y.shape[-1])
+
+    def roll(graph):
+        return rollout(apply_fn, params, model_cfg, graph, steps=steps,
+                       device=device).cpu().numpy()
+
+    roll(test[0])
+    rollouts, times = [], []
+    b = max(1, int(eval_batch_size))
+    warmed = set()
+    for i in range(0, len(test), b):
+        chunk = test[i:i + b]
+        if len(chunk) > 1:
+            union = concat_graphs(chunk)
+            if len(chunk) not in warmed:     # exclude this size's first run
+                roll(union)
+                warmed.add(len(chunk))
+            t0 = time.perf_counter()
+            pred = roll(union)
+            dt = (time.perf_counter() - t0) / len(chunk)
+            rollouts += split_union(pred, union.spec, len(chunk))
+            times += [dt] * len(chunk)
+        else:
+            t0 = time.perf_counter()
+            rollouts.append(roll(chunk[0]))
+            times.append(time.perf_counter() - t0)
+
+    analysis = SpatialAnalysis(rollouts, test, prediction_times=times,
+                               numerical_times=numerical_times,
+                               solver_label=solver_label)
+    return analysis.summary()
+
+
+def _check_single_device(cfg: Dict) -> None:
+    par = cfg.get("parallel") or {}
+    if int(par.get("data", 1)) * int(par.get("graph", 1)) > 1:
+        raise NotImplementedError(
+            "parallel: data x graph > 1 needs the multi-GPU port (ROADMAP Queue 1, "
+            "item 10); the port trains on one device")
+
+
+def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
+                 device=None) -> Dict:
+    """Train, save ``best`` and ``last``, evaluate the best parameters on the
+    test split -> the summary. With ``epoch_budget``, trains at most that
+    many epochs in this call, autosaves and returns ``{"__resume__": True,
+    "epoch": ...}`` while epochs remain; a later call resumes from
+    ``<out_dir>/autosave``."""
+    cfg = config_lib.with_defaults(cfg)
+    _check_single_device(cfg)
+    device = resolve_device(device)
+    logger = MetricLogger(out_dir, config=cfg)
+    try:
+        train, val, test, _, test_records = prepare_data(cfg)
+        print(f"dataset: {len(train)} train / {len(val)} val / {len(test)} test samples")
+        print(f"corpus: {len(test_records)} test records, sha256 "
+              f"{corpus_digest(test_records)}")
+        model_cfg, params, apply_fn = build_experiment_model(cfg, train[0], device=device)
+        print(f"model: {cfg['models']['model_type']}, {count_params(params)} params, "
+              f"on {device}")
+        if cfg.get("saved_model"):
+            params = restore_weights(cfg["saved_model"], params)
+            print(f"warm-started from {cfg['saved_model']}")
+
+        opts = trainer_options(cfg)
+        autosave_dir = os.path.join(out_dir, "autosave")
+        tr = Trainer(apply_fn, model_cfg, params, opts, train, val,
+                     multiscale=cfg["models"]["model_type"] == "MSGNN",
+                     log_fn=logger.log, checkpoint_dir=autosave_dir,
+                     batch_layout=cfg["trainer_options"].get("batch_layout", "concat"),
+                     device=device)
+        if os.path.exists(os.path.join(autosave_dir, "meta.json")):
+            print(f"resumed from epoch {tr.resume(autosave_dir)}")
+
+        stop_at = (opts.max_epochs if epoch_budget is None
+                   else min(opts.max_epochs, tr.start_epoch + epoch_budget))
+        tr.fit(max_epochs=stop_at)
+        reached = (int(tr.history[-1]["epoch"]) + 1) if tr.history else tr.start_epoch
+        tr.save(autosave_dir, reached)
+        if reached >= stop_at and stop_at < opts.max_epochs:
+            print(f"epoch budget exhausted at {reached}/{opts.max_epochs}; "
+                  "relaunch to continue")
+            return {"__resume__": True, "epoch": reached}
+
+        save_checkpoint(os.path.join(out_dir, "best"), tr.best_params,
+                        epoch=len(tr.history), history=tr.history)
+        save_checkpoint(os.path.join(out_dir, "last"), tr.params,
+                        epoch=len(tr.history), history=tr.history)
+        summary = evaluate(apply_fn, model_cfg, tr.best_params, test,
+                           numerical_times=[r.solver_seconds for r in test_records],
+                           solver_label=_solver_label(cfg),
+                           eval_batch_size=int(cfg["trainer_options"].get(
+                               "eval_batch_size", 1)),
+                           device=device)
+        summary["n_params"] = count_params(tr.best_params)
+        logger.summary(summary)
+    finally:
+        logger.close()
+    print(json.dumps(summary, indent=2, default=float))
+    return summary
+
+
+def run_eval(cfg: Dict, ckpt: str, out_dir: str, device=None) -> Dict:
+    """Evaluate the checkpoint ``ckpt`` on the test split; writes
+    ``<out_dir>/summary.json`` -> the summary."""
+    cfg = config_lib.with_defaults(cfg)
+    _check_single_device(cfg)
+    device = resolve_device(device)
+    _, _, test, _, test_records = prepare_data(cfg)
+    print(f"corpus: {len(test_records)} test records, sha256 {corpus_digest(test_records)}")
+    model_cfg, params, apply_fn = build_experiment_model(cfg, test[0], device=device)
+    params = restore_weights(ckpt, params)
+    summary = evaluate(apply_fn, model_cfg, params, test,
+                       numerical_times=[r.solver_seconds for r in test_records],
+                       solver_label=_solver_label(cfg),
+                       eval_batch_size=int(cfg["trainer_options"].get("eval_batch_size", 1)),
+                       device=device)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=float)
+    print(json.dumps(summary, indent=2, default=float))
+    return summary
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="mswe_gnn_tpu_torch experiment CLI")
+    ap.add_argument("mode", choices=["train", "eval", "sweep"])
+    ap.add_argument("--config", default=None, help="YAML config path")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir (eval mode)")
+    ap.add_argument("--out", default="runs/latest")
+    ap.add_argument("--epoch-budget", type=int, default=None,
+                    help=f"max epochs in this process; exits {EXIT_RELAUNCH} when hit "
+                         "(relaunch, and training resumes from the autosave)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs on the CPU)")
+    args = ap.parse_args(argv)
+    cfg = config_lib.read_config(args.config) if args.config else {}
+    cfg = config_lib.fix_dotted_keys(cfg)
+    if args.mode == "sweep":
+        raise NotImplementedError("sweep mode (a wandb sweep agent) is not ported")
+    if args.mode == "train":
+        result = run_training(cfg, args.out, epoch_budget=args.epoch_budget,
+                              device=args.device)
+        return EXIT_RELAUNCH if result.get("__resume__") else 0
+    if not args.ckpt:
+        ap.error("--ckpt is required for eval")
+    run_eval(cfg, args.ckpt, args.out, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

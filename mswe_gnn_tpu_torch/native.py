@@ -1,0 +1,148 @@
+"""The port's loader of the native mesh core (``native/meshcore.cpp`` and
+``native/delaunay.cpp``, the constrained Delaunay engine), bound with
+``ctypes``: the three entry points that ``data/triangulate.py`` needs.
+
+The library is compiled with ``g++`` at first use, with ``native/Makefile``'s
+own flags, into ``_build/`` beside the package (listed in ``.gitignore``),
+through the kernels' build code (``ops/build.py``): the file name carries a
+hash of the sources and the flags, so a changed source is rebuilt.
+``native/libmeshcore.so`` is never written and ``make`` is never run.
+
+There is no fallback: when the compiler is missing, the build fails or the
+library does not load, this raises with the compiler's message. (The JAX
+package warns and meshes with Qhull instead, which gives other meshes than
+its records; an explicit ``engine="qhull"`` in ``data/triangulate.py``
+stays available.) Nothing is built at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import shutil
+import threading
+import warnings
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .ops.build import compile_libraries, keyed_path
+
+NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
+SOURCES = ("meshcore.cpp", "delaunay.cpp")
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# native/Makefile's CXXFLAGS and link line, so that the meshes are the bits of
+# the JAX package's library built on the same machine
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library_path() -> Path:
+    return keyed_path("meshcore", [NATIVE_DIR / name for name in SOURCES], CXX_FLAGS,
+                      BUILD_DIR)
+
+
+def _gxx() -> str:
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler (g++) found: the mesh core of native/ is "
+                           "compiled at first use, and the port has no fallback")
+    return cxx
+
+
+def build() -> Path:
+    """Compile the mesh core unless it is built already -> the library's
+    path. Raises with the compiler's output when the build fails."""
+    job = (_gxx, CXX_FLAGS, [NATIVE_DIR / name for name in SOURCES], library_path())
+    return Path(compile_libraries({"meshcore": job}, BUILD_DIR, "mesh core")
+                ["meshcore"]["path"])
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.dual_graph_from_triangles.restype = ctypes.c_int64
+    lib.dual_graph_from_triangles.argtypes = [
+        i64p, ctypes.c_int64, i64p, i64p, i64p, i64p, u8p]
+    lib.cdt_triangulate.restype = ctypes.c_int64
+    lib.cdt_triangulate.argtypes = [
+        f64p, ctypes.c_int64, i64p, ctypes.c_int64, i64p, ctypes.c_int64]
+    lib.laplacian_smooth.restype = None
+    lib.laplacian_smooth.argtypes = [
+        f64p, ctypes.c_int64, i64p, ctypes.c_int64, u8p, ctypes.c_int64]
+
+
+def _check_index(idx: np.ndarray, n: int, width: int, what: str) -> None:
+    """Validates an index array before its pointer goes to native code."""
+    if idx.ndim != 2 or idx.shape[1] != width:
+        raise ValueError(f"{what}: expected [m, {width}], got {list(idx.shape)}")
+    if idx.size and (idx.min() < 0 or idx.max() >= n):
+        raise ValueError(f"{what}: an index lies outside 0..{n - 1}")
+
+
+def load() -> ctypes.CDLL:
+    """The mesh core, built first if it is not (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _bind(lib)
+            _lib = lib
+        return _lib
+
+
+def dual_graph_from_triangles(cells: np.ndarray
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Triangle soup [F, 3] -> (edge_index [2, E], the shared wall's vertex
+    pair of every directed edge [E, 2], boundary-face flags [F])."""
+    lib = load()
+    cells = np.ascontiguousarray(cells, dtype=np.int64)
+    _check_index(cells, 2 ** 32, 3, "cells")
+    n = len(cells)
+    cap = 6 * max(n, 1)
+    src, dst = np.empty(cap, np.int64), np.empty(cap, np.int64)
+    wa, wb = np.empty(cap, np.int64), np.empty(cap, np.int64)
+    bnd = np.zeros(max(n, 1), np.uint8)
+    e = lib.dual_graph_from_triangles(cells, n, src, dst, wa, wb, bnd)
+    return (np.stack([src[:e], dst[:e]]), np.stack([wa[:e], wb[:e]], 1),
+            bnd[:n].astype(bool))
+
+
+def cdt_triangulate(points: np.ndarray, segments: Optional[np.ndarray] = None
+                    ) -> Optional[np.ndarray]:
+    """Constrained Delaunay triangulation of ``points`` [n, 2] with the hard
+    ``segments`` [m, 2] -> CCW triangles [n_tris, 3], or None when the
+    engine gives up on these points (the caller then meshes with Qhull, as
+    the JAX package does)."""
+    lib = load()
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    n = len(pts)
+    segs = (np.ascontiguousarray(segments, dtype=np.int64)
+            if segments is not None and len(segments) else np.empty((0, 2), np.int64))
+    if pts.ndim != 2 or pts.shape[1] != 2:
+        raise ValueError(f"points: expected [n, 2], got {list(pts.shape)}")
+    _check_index(segs, n, 2, "segments")
+    cap = 4 * max(n, 4)
+    tris = np.empty((cap, 3), np.int64)
+    m = lib.cdt_triangulate(pts, n, segs.reshape(-1), len(segs), tris.reshape(-1), cap)
+    if m < 0:
+        warnings.warn(f"cdt_triangulate failed (code {m}); using Qhull fallback")
+        return None
+    return tris[:m].copy()
+
+
+def laplacian_smooth(points: np.ndarray, triangles: np.ndarray, fixed: np.ndarray,
+                     iters: int = 3) -> np.ndarray:
+    """Fixed-boundary Laplacian smoothing: each free vertex moves to the
+    mean of its mesh neighbours, ``iters`` times -> the smoothed points."""
+    lib = load()
+    pts = np.array(points, dtype=np.float64, order="C")
+    tris = np.ascontiguousarray(triangles, dtype=np.int64)
+    fx = np.ascontiguousarray(fixed, dtype=np.uint8)
+    _check_index(tris, len(pts), 3, "triangles")
+    if fx.shape != (len(pts),):
+        raise ValueError("fixed: expected one flag a point")
+    lib.laplacian_smooth(pts, len(pts), tris.reshape(-1), len(tris), fx, int(iters))
+    return pts

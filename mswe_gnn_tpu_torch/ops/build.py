@@ -5,7 +5,9 @@ Each library is one ``csrc/<name>.cu`` source (plus the shared header
 sm_90a into ``BUILD_DIR`` (listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is rebuilt when its source, the header or the flags
 change (the file name carries their hash). ``build`` starts one ``nvcc`` a
-source, all at once, and waits for them together. Given another source
+source, all at once, and waits for them together. ``keyed_path`` and
+``compile_libraries`` serve any compiler: ``native.py`` builds the mesh core
+with them. Given another source
 directory (another checkout's ``csrc/``), it builds that version beside the
 shipped one, for comparisons on the card (``kernel_ab.py``).
 
@@ -52,36 +54,40 @@ def _nvcc() -> str:
                        f"{CSRC_DIR.name}/ on the machine that has the GPU")
 
 
-def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
-    digest = hashlib.sha256(source(name, csrc_dir).read_bytes())
-    for header in HEADERS:
-        digest.update((Path(csrc_dir) / header).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+def keyed_path(stem: str, files, flags, build_dir: Path) -> Path:
+    """``build_dir/lib<stem>_<hash>.so``: the hash covers the bytes of
+    ``files`` and the ``flags``, so a changed source, header or flag names
+    another file and is rebuilt."""
+    digest = hashlib.sha256()
+    for f in files:
+        digest.update(Path(f).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return Path(build_dir) / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(*names: str, csrc_dir: Path = CSRC_DIR) -> dict:
-    """Compile the named libraries (default: all), one ``nvcc`` each, in
-    parallel, from ``csrc_dir``. Returns ``{name:
-    {"path", "seconds", "log"}}``; ``log`` holds the compiler's output
-    (``-Xptxas -v``: registers, stack frame and spills of every
-    instantiation), kept beside the library for a later call. Raises if
-    any build fails."""
-    names = names or LIBRARIES
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_libraries(jobs: dict, build_dir: Path, what: str) -> dict:
+    """Builds every job ``{name: (compiler, flags, sources, path)}`` whose
+    ``path`` does not exist yet: one compiler process a job, all started
+    together, each writing a temporary file in ``build_dir`` that replaces
+    ``path`` atomically once it built (a concurrent build never sees half a
+    file). ``compiler`` is a callable that gives the compiler's path, called
+    only when the job is built. Returns ``{name: {"path", "seconds",
+    "log"}}``; ``log`` is the compiler's output, kept beside the library for
+    a later call. Raises ``"<what> build failed"`` with the output of every
+    failed build."""
+    Path(build_dir).mkdir(parents=True, exist_ok=True)
     running, out = {}, {}
     try:
-        for name in names:
-            lib = library_path(name, csrc_dir)
+        for name, (compiler, flags, sources, lib) in jobs.items():
             if lib.exists():
                 log_file = lib.with_suffix(".log")
                 out[name] = {"path": str(lib), "seconds": 0.0,
                              "log": log_file.read_text() if log_file.exists() else ""}
                 continue
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            argv = [compiler(), *flags]
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                     str(source(name, csrc_dir))],
+            proc = subprocess.Popen([*argv, "-o", tmp, *map(str, sources)],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             running[name] = (proc, tmp, lib, time.perf_counter())
@@ -89,13 +95,14 @@ def build(*names: str, csrc_dir: Path = CSRC_DIR) -> dict:
         for name, (proc, tmp, lib, t0) in running.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exit code {proc.returncode}\n{log}")
+                failed.append(f"{name}: {Path(proc.args[0]).name} exit code "
+                              f"{proc.returncode}\n{log}")
                 continue
             lib.with_suffix(".log").write_text(log)
-            os.replace(tmp, lib)      # atomic: a concurrent build never sees half a file
+            os.replace(tmp, lib)
             out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
         if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+            raise RuntimeError(f"{what} build failed:\n" + "\n".join(failed))
     finally:
         for proc, tmp, _, _ in running.values():
             if proc.poll() is None:
@@ -104,6 +111,22 @@ def build(*names: str, csrc_dir: Path = CSRC_DIR) -> dict:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return out
+
+
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    return keyed_path(name, [source(name, csrc_dir),
+                             *(Path(csrc_dir) / header for header in HEADERS)],
+                      NVCC_FLAGS, BUILD_DIR)
+
+
+def build(*names: str, csrc_dir: Path = CSRC_DIR) -> dict:
+    """Compile the named libraries (default: all), one ``nvcc`` each, in
+    parallel, from ``csrc_dir`` (``compile_libraries``). ``log`` holds
+    ``-Xptxas -v``'s registers, stack frame and spills of every
+    instantiation. Raises if any build fails."""
+    return compile_libraries(
+        {name: (_nvcc, NVCC_FLAGS, [source(name, csrc_dir)], library_path(name, csrc_dir))
+         for name in names or LIBRARIES}, BUILD_DIR, "kernel")
 
 
 def load(name: str) -> ctypes.CDLL:

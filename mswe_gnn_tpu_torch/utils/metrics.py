@@ -1,6 +1,5 @@
-"""Evaluation metrics: CSI, F1 and the rollout RMSE/MAE (port of
-mswe_gnn_tpu/utils/metrics.py:15-75; the other metrics of that module are
-not ported yet).
+"""Evaluation metrics: CSI, F1, rollout RMSE/MAE, FAT, Froude, speed-up and
+the K-hop sufficiency diagnostic (port of mswe_gnn_tpu/utils/metrics.py).
 
 Rollouts are [N, 2, T] (single) or [B, N, 2, T] (batched; a concat union's
 finest block reshaped per graph, as ``eval_step(per_graph=True)`` does);
@@ -9,6 +8,9 @@ out.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 
@@ -71,3 +73,70 @@ def get_rollout_loss(pred_roll, real_roll, node_mask, type_loss: str = "RMSE",
         return per_t.mean(dim=-1)
     per_t = (diff.abs() * nm[..., None, None]).sum(dim=-3) / cnt[..., None, None]
     return per_t.mean(dim=-1)
+
+
+def wd_to_fat(wd, temporal_res: float, water_threshold: float = 0.0,
+              time_start: int = 0):
+    """Flood-arrival-time map in hours from a [N, T] water-depth sequence
+    (reference utils/miscellaneous.py:56-68)."""
+    total_time = time_start + wd.shape[-1]
+    flooded_time = (wd > water_threshold).sum(-1)
+    return (total_time - flooded_time) * temporal_res / 60.0
+
+
+def get_velocity(discharge: torch.Tensor, water_depth: torch.Tensor,
+                 epsilon: float = 0.01) -> torch.Tensor:
+    """v = q/h with shallow-water cutoff (reference utils/miscellaneous.py:44-48)."""
+    v = discharge / torch.clamp(water_depth, min=epsilon)
+    return torch.where(water_depth > epsilon, v, torch.zeros_like(v))
+
+
+def get_froude(velocity: torch.Tensor, water_depth: torch.Tensor) -> torch.Tensor:
+    """Froude number v / sqrt(g h) (reference utils/miscellaneous.py:50-54)."""
+    g = 9.81
+    fr = velocity / torch.sqrt(g * torch.clamp(water_depth, min=1e-12))
+    return torch.where(water_depth > 0, fr, torch.zeros_like(fr))
+
+
+def get_speed_up(numerical_times: np.ndarray, model_times: np.ndarray) -> Tuple[float, float]:
+    """Speed-up of the surrogate vs the numerical solver
+    (reference utils/miscellaneous.py:110-114)."""
+    ratio = np.asarray(numerical_times) / np.asarray(model_times)
+    return float(ratio.mean()), float(ratio.std())
+
+
+def get_sufficient_k_hops(edge_index: np.ndarray, wd: np.ndarray,
+                          cover_percentage: float = 0.999, max_k: int = 50) -> int:
+    """Minimum K so K-hop neighborhoods cover one-step wet-front growth
+    (reference utils/miscellaneous.py:266-301). Host-side diagnostic."""
+    src, dst = edge_index
+    water_t1 = (wd[:, 1:] > 0)
+    fake = (wd[:, :-1] > 0).astype(np.float64)
+
+    def covered(f):
+        hit = (f[water_t1] > 0).sum()
+        need = water_t1.sum()
+        return hit >= cover_percentage * need if cover_percentage < 1 else hit == need
+
+    k = 0
+    while not covered(fake):
+        spread = np.zeros_like(fake)
+        np.add.at(spread, dst, fake[src])
+        fake = np.clip(spread + fake, 0, 1)
+        k += 1
+        if k > max_k:
+            break
+    return k
+
+
+def get_sufficient_k_hops_per_scale(edge_index: np.ndarray, wd: np.ndarray,
+                                    edge_ptr, node_ptr,
+                                    cover_percentage: float = 0.999):
+    """Per-scale receptive-field sufficiency
+    (reference utils/miscellaneous.py:303-309)."""
+    out = []
+    for i in range(len(node_ptr) - 1):
+        ei = edge_index[:, edge_ptr[i]: edge_ptr[i + 1]] - node_ptr[i]
+        out.append(get_sufficient_k_hops(ei, wd[node_ptr[i]: node_ptr[i + 1]],
+                                         cover_percentage))
+    return out

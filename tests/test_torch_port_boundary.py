@@ -2,8 +2,9 @@
 
 - ``mswe_gnn_tpu_torch``, ``chip_smoke.py`` and ``kernel_ab.py`` import nothing of JAX, its
   libraries or the JAX package (an AST scan of every import);
-- the entry points run on the GPU unless the caller names a device, and
-  raise where there is none, with no silent CPU fallback.
+- the entry points (the CLI's ``main`` included) run on the GPU unless the
+  caller names a device, and raise where there is none, with no silent CPU
+  fallback.
 """
 import ast
 from pathlib import Path
@@ -36,6 +37,10 @@ def imported_modules(path: Path):
 def test_port_imports_nothing_of_jax():
     files = port_sources()
     assert len(files) > 15
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"mswe_gnn_tpu_torch/{m}.py" for m in (
+        "native", "config", "main", "data/triangulate", "data/npz_store", "data/synthetic",
+        "data/meshing", "utils/metrics", "utils/analysis", "utils/logging")} <= scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
            for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -67,6 +72,16 @@ def test_build_model_without_device_raises_without_cuda(no_cuda):
         build_model({"hid_features": 8}, **MODEL_KW)
     cfg, params, _ = build_model({"hid_features": 8}, device="cpu", **MODEL_KW)
     assert params["node_decoder"]["layers"][0]["w"].device.type == "cpu"
+
+
+def test_main_without_device_raises_without_cuda(no_cuda, tmp_path):
+    from mswe_gnn_tpu_torch import main as port_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(["eval", "--ckpt", str(tmp_path), "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main(["train", "--out", str(tmp_path)])
+    assert not (tmp_path / "metrics.jsonl").exists()
 
 
 def test_rollout_without_device_raises_without_cuda(no_cuda):

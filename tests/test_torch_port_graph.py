@@ -92,7 +92,7 @@ def test_graph_to_moves_every_tensor(records):
     assert moved.spec == g.spec
 
 
-@pytest.mark.parametrize("kw", [{"mesh_type": "triangulated"}, {"storm": True}])
+@pytest.mark.parametrize("kw", [{"storm": True}])
 def test_unported_generator_options_raise(kw):
     with pytest.raises(NotImplementedError):
         port_generate(1, seed=0, nx=8, ny=8, num_scales=2, total_hours=2,

@@ -53,8 +53,12 @@ def block_problem(rng, n_dst, n_src, e, f, fe, same_block):
     return x_s, x_d, x_s_dst, x_d_dst, src, dst, ea, table, mask
 
 
-@pytest.mark.parametrize("form", ["slot", "flat", "unpool"])
-def test_swegnn_block_matches_jax(rng, form):
+@pytest.mark.parametrize("form,zero_flux", [
+    pytest.param(form, zero, id=form + ("-zero_flux" if zero else ""))
+    for zero in (False, True) for form in ("slot", "flat", "unpool")])
+def test_swegnn_block_matches_jax(rng, form, zero_flux):
+    """One SWEGNN layer with random biases, or (``zero_flux``) with a
+    zero-flux edge; rtol 1e-5 / atol 1e-5."""
     f = 16
     if form == "unpool":
         kw = dict(edge_features=0, K=1, with_filter_matrix=False, with_gradient=False)
@@ -68,9 +72,29 @@ def test_swegnn_block_matches_jax(rng, form):
     jcfg = jax_swegnn.SWEGNNConfig(**cfg_kw)
     pcfg = port_swegnn.SWEGNNConfig(**cfg_kw)
     jparams = jax_swegnn.init_swegnn(jax.random.PRNGKey(3), jcfg)
-    pparams = jax.tree_util.tree_map(lambda a: t(a), numpy_tree(jparams))
     x_s, x_d, x_s_dst, x_d_dst, src, dst, ea, table, mask = prob
     same = form != "unpool"
+    if zero_flux:
+        # edge 0 joins two all-zero rows, has zero features, and the edge MLP
+        # has no biases, so its flux is exactly 0 and its norm 0, which both
+        # packages map to a zero flux (JAX swegnn.py:157-159, :211-213)
+        for layer in jparams["edge_mlp"]["layers"]:
+            if "b" in layer:
+                layer["b"] = jax.numpy.zeros_like(layer["b"])
+        x_s[src[0]] = x_d[src[0]] = 0.0
+        x_s_dst[dst[0]] = x_d_dst[dst[0]] = 0.0
+        if ea is not None:
+            ea[0] = 0.0
+    pparams = jax.tree_util.tree_map(lambda a: t(a), numpy_tree(jparams))
+    if zero_flux:
+        slot = [k for k in range(table.shape[1])
+                if table[dst[0], k] == 0 and mask[dst[0], k]]
+        flux = port_swegnn._edge_flux_slots(
+            pparams, pcfg, t(x_s), t(x_d), t(x_s_dst), t(x_d_dst),
+            t(src[table]).int(), t(ea[table]) if ea is not None else None, t(mask))
+        assert len(slot) == 1 and torch.all(flux[dst[0], slot[0]] == 0)
+        zero_real = (flux.abs().sum(-1) == 0) & (t(mask) > 0)
+        assert torch.isfinite(flux).all() and int(zero_real.sum()) == 1   # edge 0 alone
     want = np.asarray(jax_swegnn.apply_swegnn_block(
         jparams, jcfg, x_s, x_d, x_s_dst, x_d_dst, src, dst, edge_attr=ea,
         same_block=same, agg_table=table, agg_mask=mask))

@@ -4,6 +4,7 @@ each hop shape and how they read the counted ones, the bench tables they
 time the kernels on, and the build paths of other versions of the kernel
 sources. No kernel runs here.
 """
+import re
 import shutil
 from collections import Counter
 
@@ -185,6 +186,41 @@ def test_build_keeps_the_compiler_log_for_a_later_call(tmp_path, monkeypatch):
     again = kernel_build.build("hop")["hop"]
     assert "Used 7 registers" in first["log"] and again["log"] == first["log"]
     assert again["path"] == first["path"] and again["seconds"] == 0.0
+
+
+def test_cli_shapes_are_held_where_launched(bench32):
+    """Phase 10 holds the kernels at every shape a CLI run launched: each
+    union size whose finest-scale hop ran is rebuilt and checked at its
+    launched shapes (the backward only where it ran), and a launched shape
+    that no union gives fails the phase."""
+    sample, _, cfg, params = bench32
+    n = sample.spec.node_counts
+    counts = Counter()
+    for b, backward in ((1, False), (2, True)):
+        for (kernel, nd, ns), k in cs.hops_per_step(cfg, sample.spec.tile(b)).items():
+            counts[kernel, nd, ns] += k
+            if backward:
+                counts["hop_bwd", nd, ns] += k
+    checks = cs.Checks()
+    sizes = cs.hold_path_shapes(checks, "test", cfg, params, [sample, sample], counts, 8,
+                                device="cpu")
+    assert sorted(sizes) == [1, 2]         # not 4: its finest hop never ran
+    for b in (1, 2):
+        m = [b * c for c in n]
+        assert [(nd, ns) for nd, ns, _ in sizes[b]] == [
+            (m[0], m[0]), (m[1], m[1]), (m[2], m[2]), (m[0], m[1]), (m[1], m[2])]
+        # a shape of both unions (a coarse scale of 2 is a finer one of 1)
+        # is held with its backward on each
+        assert [bwd for nd, ns, bwd in sizes[b]] == [
+            ("hop_bwd", nd, ns) in counts for nd, ns, _ in sizes[b]]
+    n_bwd = sum(bwd for b in sizes for _, _, bwd in sizes[b])
+    assert all(bwd for _, _, bwd in sizes[2]) and n_bwd > 5
+    assert checks.count > 3 * (10 + n_bwd)          # 3 modes, every output held
+    assert checks.worst == {("hop", "float32"): 0.0, ("hop_bwd", "float32"): 0.0}
+    odd = ("hop", n[0] + 1, n[0] + 1)              # a shape no union gives
+    with pytest.raises(AssertionError, match=re.escape(f"held nowhere: [{odd}]")):
+        cs.hold_path_shapes(cs.Checks(), "test", cfg, params, [sample, sample],
+                            counts + Counter({odd: 1}), 8, device="cpu")
 
 
 def test_union_launch_counts_and_graph_rows(bench32):
