@@ -74,12 +74,28 @@ Phases, each printing its own lines:
    ``eval_batch_size`` test graphs; and the loss and gradients of one train
    step on a union of ``batch_size`` training samples (phase 5's float32
    limits).
+11. gnn -- the single-scale SWE-GNN of ``configs/pareto_gnn.yaml`` at its
+   full width (F=64, K=10, 2 layers, mlp_layers 3, float32, 251,604
+   parameters) on the 152x152 grid's single-scale dual graph (23,168 rows):
+   (a) its 47-step rollout, all ELL (20 hops a step), launches held, step 0
+   against the plain hop and the rollout timed as in phase 4; (b) the train
+   step of phase 5 with the graph's band plan (band forward and backward,
+   launches held), its float32 gradients against the plain hops at phase
+   5's float32 limits, timed; (c) the Cheb / TAG / GAT baselines at the
+   same width: step 0 on the card against the CPU (atol 1e-4) and a timed
+   47-step rollout each, no hop launched; (d) the CLI's ``train`` on a cut
+   pareto_gnn corpus (each cut printed) and ``eval`` of its ``best`` (the
+   training summary within 1e-5), every launched shape held as in phase 10;
+   (e) the bench MSGNN with ``learned_pooling`` on the 3-scale bench graph,
+   one step held against the plain hops within phase 4's limit.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
 serving at batch 4 and 20, train step at batch 4, the CLI's train, eval and
-trained-weights eval), each path counted from 0 just before it runs; ``launches_by_path`` holds each path's own count, the
-figure to read for one path. Then the ``nvidia-smi`` line, and last
+trained-weights eval, and phase 11's rollout, train step, CLI train and eval
+and learned-pooling step), each path counted from 0 just before it runs;
+``launches_by_path`` holds each path's own count, the figure to read for
+one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without printing a result. It imports nothing of JAX.
 """
@@ -576,14 +592,17 @@ def launch_info(fns, dtype, feat, rows, kind="fwd", extra=()) -> dict:
 
 def hops_per_step(cfg, spec, band_meta=None) -> collections.Counter:
     """Hop launches of one model step by ``(kernel, Nd, Ns)``: every
-    processor runs K hops on its scale (the band kernel where the scale has a
-    plan), every level one un-pool hop (ELL, K=1)."""
+    processor layer runs K hops on its scale (``processor_layers``; the band
+    kernel where the scale has a plan), every level of an MSGNN one un-pool
+    hop (ELL, K=1). A single-scale SWE-GNN runs ``n_gnn_layers`` x K hops
+    over its one block of rows and no un-pool hop; a Cheb / TAG / GAT
+    baseline none."""
     planned = {i for i, m in enumerate(band_meta or ()) if m is not None}
     counts = collections.Counter()
-    for k, scale in zip(cfg.k_schedule, processor_scales(cfg)):
-        n = spec.node_counts[scale]
+    for k, scale in processor_layers(cfg):
+        n = spec.node_counts[scale] if is_msgnn(cfg) else spec.num_nodes
         counts[("band_hop" if scale in planned else "hop", n, n)] += k
-    for lvl in range(cfg.num_scales - 1):
+    for lvl in range(cfg.num_scales - 1 if is_msgnn(cfg) else 0):
         counts[("hop", spec.node_counts[lvl], spec.node_counts[lvl + 1])] += cfg.intra_cfg().K
     return counts
 
@@ -622,27 +641,32 @@ def bench_hop_cases(cache, spec, seed=1000, device="cuda", dtype=torch.bfloat16)
     return cases
 
 
-def timing_case(kernel, shape, nd, ns, run, plain, work, **extra) -> dict:
-    """One row of ``timing_cases``: the kernel, its shape and launch key
-    ``(kernel, Nd, Ns)``, the wrapper and the plain version as calls, and
-    the bound of ``work = (bytes, ops)``."""
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "float32"}
+
+
+def timing_case(kernel, shape, nd, ns, run, plain, work, dtype=torch.bfloat16,
+                **extra) -> dict:
+    """One row of ``timing_cases``: the kernel, its shape, dtype and launch
+    key ``(kernel, Nd, Ns)``, the wrapper and the plain version as calls,
+    and the bound of ``work = (bytes, ops)``."""
     ms, by = bound(*work)
-    return dict(kernel=kernel, shape=shape, key=(kernel, nd, ns), run=run, plain=plain,
-                bound_ms=ms, bound_by=by, bytes=work[0], ops=work[1], **extra)
+    return dict(kernel=kernel, shape=shape, dtype=DTYPE_NAMES[dtype], key=(kernel, nd, ns),
+                run=run, plain=plain, bound_ms=ms, bound_by=by, bytes=work[0], ops=work[1],
+                **extra)
 
 
-def ell_timing_cases(cache, spec, backward_shapes, label="") -> list:
+def ell_timing_cases(cache, spec, backward_shapes, label="", dtype=torch.bfloat16) -> list:
     """The ELL forward on the tables of a graph's cache (``bench_hop_cases``)
     and, at each ``(Nd, Ns)`` of ``backward_shapes``, the ELL backward on
-    the same inputs, bf16; ``label`` prefixes each shape's name."""
-    cases = []
-    for name, args, grad, same in bench_hop_cases(cache, spec):
+    the same inputs, in ``dtype``; ``label`` prefixes each shape's name."""
+    cases, nbytes = [], torch.tensor([], dtype=dtype).element_size()
+    for name, args, grad, same in bench_hop_cases(cache, spec, dtype=dtype):
         nd, ns = args[0].shape[0], args[1].shape[0]
         cases.append(timing_case(
             "hop", label + name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
             partial(hop_ops.hop_reference, *args, with_gradient=grad),
-            hop_work(nd, ns, DEGREE, FEAT, 2, same, 4 if grad else 3),
-            launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd)))
+            hop_work(nd, ns, DEGREE, FEAT, nbytes, same, 4 if grad else 3), dtype,
+            launch=launch_info(hop_ops._kernels(), dtype, FEAT, nd)))
         if (nd, ns) in backward_shapes:
             table = hop_ops.out_slot_table(args[2], ns, slot_mask_of(args[3]))
             g = upstream(3100 + nd, args[0])
@@ -650,10 +674,44 @@ def ell_timing_cases(cache, spec, backward_shapes, label="") -> list:
                 "hop_bwd", label + name, nd, ns,
                 partial(hop_ops.hop_backward, *args, g, *table, grad),
                 partial(hop_ops.hop_backward_reference, *args, g, *table, grad),
-                hop_bwd_work(nd, ns, DEGREE, FEAT, 2, same, grad),
+                hop_bwd_work(nd, ns, DEGREE, FEAT, nbytes, same, grad), dtype,
                 table_bytes=table_bytes(table),
-                launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd, "bwd",
+                launch=launch_info(hop_ops._kernels(), dtype, FEAT, nd, "bwd",
                                    (ns, int(same)))))
+    return cases
+
+
+def band_timing_cases(banded, label="bench plan", dtype=torch.bfloat16) -> list:
+    """The band forward and backward on every plan of ``banded``, in
+    ``dtype``."""
+    spec, cases = banded.spec, []
+    nbytes_el = torch.tensor([], dtype=dtype).element_size()
+    tag = DTYPE_NAMES[dtype]
+    for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
+        if plan is None:
+            continue
+        ws, we = meta
+        bp = band_ops.BandPlan(win=plan["win"], idx_rel=plan["idx_rel"], ws=ws, we=we)
+        mask = banded.in_edge_mask[spec.node_slice(i)]
+        state, s, idx_rel, win = band_inputs(2000 + i, bp, mask, FEAT, dtype)
+        n = state.shape[0]
+        src = band_ops.band_sources(bp.idx_rel, bp.win, ws, we).cuda()
+        table = hop_ops.out_slot_table(src, n, mask.cuda())
+        g = upstream(2100 + i, state)
+        args, kw = (state, s, idx_rel, win), dict(ws=ws, we=we)
+        shape = f"scale {i} N={n} D={DEGREE} F={FEAT} ws={ws} we={we} {tag} {label}"
+        nbytes, ops = hop_work(n, n, DEGREE, FEAT, nbytes_el, True, 4)
+        cases.append(timing_case(
+            "band_hop", shape, n, n, partial(band_ops.band_hop, *args, **kw),
+            partial(band_ops.band_hop_reference, *args, **kw), (nbytes + win.numel() * 4, ops),
+            dtype, launch=launch_info(band_ops._kernels(), dtype, FEAT, n)))
+        nbytes, ops = hop_bwd_work(n, n, DEGREE, FEAT, nbytes_el, True, True)
+        cases.append(timing_case(
+            "band_hop_bwd", shape, n, n,
+            partial(band_ops.band_hop_backward, *args, g, *table, **kw),
+            partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
+            (nbytes + win.numel() * 4, ops), dtype, table_bytes=table_bytes(table),
+            launch=launch_info(band_ops._kernels(), dtype, FEAT, n, "bwd")))
     return cases
 
 
@@ -662,41 +720,15 @@ def timing_cases(banded, cache, cfg) -> list:
     ``kernel_ab.py`` time them: the ELL forward on the rollout's own tables
     (``cache``, ``bench_hop_cases``), the ELL backward at the train step's
     ELL shapes, the band kernels on the bench plans. -> ``[{"kernel",
-    "shape", "key", "run", "plain", "bound_ms", "bound_by", "bytes",
-    "ops", "launch"}]``: ``key`` is ``(kernel, Nd, Ns)`` as the wrappers
-    count launches, ``run`` and ``plain`` call the wrapper and the plain
-    version on the same inputs, ``launch`` is ``launch_info``; a backward
-    also has ``table_bytes``."""
+    "shape", "dtype", "key", "run", "plain", "bound_ms", "bound_by",
+    "bytes", "ops", "launch"}]``: ``key`` is ``(kernel, Nd, Ns)`` as the
+    wrappers count launches, ``run`` and ``plain`` call the wrapper and the
+    plain version on the same inputs, ``launch`` is ``launch_info``; a
+    backward also has ``table_bytes``."""
     spec = banded.spec
     train_ell = {(nd, ns) for kernel, nd, ns in hops_per_step(cfg, spec, banded.band_meta)
                  if kernel == "hop"}
-    cases = ell_timing_cases(cache, spec, train_ell)
-    for i, (plan, meta) in enumerate(zip(banded.band_plan["scales"], banded.band_meta)):
-        if plan is None:
-            continue
-        ws, we = meta
-        bp = band_ops.BandPlan(win=plan["win"], idx_rel=plan["idx_rel"], ws=ws, we=we)
-        mask = banded.in_edge_mask[spec.node_slice(i)]
-        state, s, idx_rel, win = band_inputs(2000 + i, bp, mask, FEAT, torch.bfloat16)
-        n = state.shape[0]
-        src = band_ops.band_sources(bp.idx_rel, bp.win, ws, we).cuda()
-        table = hop_ops.out_slot_table(src, n, mask.cuda())
-        g = upstream(2100 + i, state)
-        args, kw = (state, s, idx_rel, win), dict(ws=ws, we=we)
-        shape = f"scale {i} N={n} D={DEGREE} F={FEAT} ws={ws} we={we} bf16 bench plan"
-        nbytes, ops = hop_work(n, n, DEGREE, FEAT, 2, True, 4)
-        cases.append(timing_case(
-            "band_hop", shape, n, n, partial(band_ops.band_hop, *args, **kw),
-            partial(band_ops.band_hop_reference, *args, **kw), (nbytes + win.numel() * 4, ops),
-            launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n)))
-        nbytes, ops = hop_bwd_work(n, n, DEGREE, FEAT, 2, True, True)
-        cases.append(timing_case(
-            "band_hop_bwd", shape, n, n,
-            partial(band_ops.band_hop_backward, *args, g, *table, **kw),
-            partial(band_ops.band_hop_backward_reference, *args, g, *table, **kw),
-            (nbytes + win.numel() * 4, ops), table_bytes=table_bytes(table),
-            launch=launch_info(band_ops._kernels(), torch.bfloat16, FEAT, n, "bwd")))
-    return cases
+    return ell_timing_cases(cache, spec, train_ell) + band_timing_cases(banded)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -735,6 +767,14 @@ def timed_rollouts(apply_fn, params, cfg, graph, steps, device, reps=3):
     return statistics.median(event_ms), event_ms, host_ms
 
 
+def first_step(graph):
+    """The graph with step 0's boundary condition injected, as the rollout
+    feeds its first model step."""
+    from mswe_gnn_tpu_torch.training.rollout import bc_window, inject_bc
+
+    return graph.replace(x_dynamic=inject_bc(graph.x_dynamic, graph, bc_window(graph, 0)))
+
+
 def check_rollout(what, preds, graph, steps) -> None:
     """Raises unless ``preds`` is ``[N, 2, steps]`` for the graph's N rows,
     finite, non-negative and zero on the padded rows."""
@@ -746,22 +786,32 @@ def check_rollout(what, preds, graph, steps) -> None:
         raise AssertionError(f"{what}: padded rows are not zero")
 
 
-def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
+def model_label(cfg) -> str:
+    if is_msgnn(cfg):
+        return f"MSGNN F={cfg.hid_features} K={cfg.K}"
+    return (f"GNN/{cfg.type_gnn} F={cfg.hid_features} K={cfg.K} "
+            f"layers={cfg.n_gnn_layers}")
+
+
+def phase_serving(sample, mesh, cfg, params, apply_fn, phase="serving") -> dict:
+    """The ``steps``-step rollout of ``sample`` (phase 4; phase 11 (a) on the
+    single-scale graph with ``phase="gnn"``)."""
     from mswe_gnn_tpu_torch.models import count_params, prepare_graph
-    from mswe_gnn_tpu_torch.training.rollout import bc_window, inject_bc, rollout
+    from mswe_gnn_tpu_torch.training.rollout import rollout
 
     device = torch.device("cuda")
     spec = sample.spec
     steps = sample.y.shape[-1]
-    log(f"[serving] nodes {list(spec.node_counts)} padded "
+    log(f"[{phase}] nodes {list(spec.node_counts)} padded "
         f"({sum(m.num_faces for m in mesh.meshes)} raw), edges {list(spec.edge_counts)}, "
         f"table widths in/pool/unpool {spec.in_degree}/{spec.pool_degree}/"
-        f"{spec.unpool_degree}; MSGNN F={cfg.hid_features} K={cfg.K} "
+        f"{spec.unpool_degree}; {model_label(cfg)} "
         f"mlp_layers={cfg.mlp_layers} {cfg.compute_dtype}, {count_params(params)} "
         f"parameters; {steps} steps")
     graph = sample.to(device)
     # hop launches a step: K of every processor, plus the K=1 un-pool hop of
-    # every level: 5 x 5 + 2 x 1 = 27 for the bench model, all ELL
+    # every level: 5 x 5 + 2 x 1 = 27 for the bench model, all ELL; 2 x 10
+    # for pareto_gnn's
     expected = rollout_launches(cfg, spec, steps)
 
     torch.cuda.reset_peak_memory_stats()
@@ -769,17 +819,17 @@ def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
     preds = rollout(apply_fn, params, cfg, graph, steps, device=device)
     torch.cuda.synchronize()
     counts = read_launches()
-    hold_launches("serving", f"the {steps}-step rollout", counts, expected)
+    hold_launches(phase, f"the {steps}-step rollout", counts, expected)
     check_rollout("the rollout", preds, graph, steps)
     wet = float((preds[:, 0] > 0).float().mean())
-    log(f"[serving] predictions [{', '.join(map(str, preds.shape))}] finite, >= 0, "
+    log(f"[{phase}] predictions [{', '.join(map(str, preds.shape))}] finite, >= 0, "
         f"padded rows 0; wet share {wet:.3f}, max {float(preds.max()):.4f}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the first step again, through the kernel and through the plain hop
     with torch.inference_mode():
         g = prepare_graph(params, cfg, graph)
-        gt = g.replace(x_dynamic=inject_bc(g.x_dynamic, g, bc_window(g, 0)))
+        gt = first_step(g)
         p_kernel = apply_fn(params, cfg, gt)
         with plain_hops():
             p_plain = apply_fn(params, cfg, gt)
@@ -789,14 +839,14 @@ def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
     limit = 2 * 2.0 ** -8 * float(p_plain.abs().max())
     err = float((p_kernel - p_plain).abs().max())
     err_roll = float((p_kernel - preds[..., 0]).abs().max())
-    log(f"[serving] step 0 kernel vs plain hop: max|err| {err:.3e} (limit {limit:.3e}); "
+    log(f"[{phase}] step 0 kernel vs plain hop: max|err| {err:.3e} (limit {limit:.3e}); "
         f"vs the rollout's step 0: {err_roll:.3e}")
     if not (err <= limit and err_roll <= limit):
         raise AssertionError("step 0 through the kernel disagrees with the plain hop")
 
     # three timed rollouts after the counted one
     rollout_ms, event_ms, host_ms = timed_rollouts(apply_fn, params, cfg, graph, steps, device)
-    log(f"[serving] {steps}-step rollout: {rollout_ms:.1f} ms median of 3 "
+    log(f"[{phase}] {steps}-step rollout: {rollout_ms:.1f} ms median of 3 "
         f"(CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
         f"{', '.join(f'{t:.1f}' for t in host_ms)} ms)")
 
@@ -805,10 +855,24 @@ def phase_serving(sample, mesh, cfg, params, apply_fn) -> dict:
     return {"launches": counts, "rollout_ms": rollout_ms, "cache": cache, "preds": preds}
 
 
+def is_msgnn(cfg) -> bool:
+    return type(cfg).__name__ == "MSGNNConfig"
+
+
 def processor_scales(cfg):
-    """The scale of every processor layer, in k_schedule order."""
+    """The scale of every SWEGNN processor layer, in execution order: the
+    V-cycle's for an MSGNN, scale 0 for each layer of a single-scale SWE-GNN
+    (whose band plan is that of scale 0), none for a baseline."""
+    if not is_msgnn(cfg):
+        return [0] * cfg.n_gnn_layers if cfg.type_gnn == "SWEGNN" else []
     L = cfg.num_scales
     return list(range(L - 1)) + list(range(L - 1, -1, -1))
+
+
+def processor_layers(cfg):
+    """``(K, scale)`` of every SWEGNN processor layer (``processor_scales``)."""
+    ks = cfg.k_schedule if is_msgnn(cfg) else (cfg.K,) * cfg.n_gnn_layers
+    return list(zip(ks, processor_scales(cfg)))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -889,28 +953,35 @@ def hold_grads(phase, args, through_kernels):
     """The loss and gradients of ``loss_and_grads(*args)`` through the
     kernels (``through_kernels``, in the config's bf16) against those
     through the plain hops, in bf16 and in float32 -> ``(bf16, f32, (loss,
-    grads) through the kernels in float32)``; raises past the limits."""
+    grads) through the kernels in float32)``; raises past the limits. A
+    float32 config is held once, in float32 (``bf16`` is None)."""
     from mswe_gnn_tpu_torch.training.train import loss_and_grads
 
     apply_fn, params, cfg, graph, rollout_steps, opts, multiscale = args
     with plain_hops():
         loss_p, grads_p = loss_and_grads(*args)
-    bf16 = compare_grads(*through_kernels, loss_p, grads_p)
-    args32 = (apply_fn, params, dataclasses.replace(cfg, compute_dtype="float32"), graph,
-              rollout_steps, opts, multiscale)
-    kernels32 = loss_and_grads(*args32)
-    with plain_hops():
-        loss_p32, grads_p32 = loss_and_grads(*args32)
+    if cfg.compute_dtype == "float32":
+        # a float32 model (pareto_gnn's): its pass is the float32 one
+        bf16, kernels32, loss_p32, grads_p32 = None, through_kernels, loss_p, grads_p
+    else:
+        bf16 = compare_grads(*through_kernels, loss_p, grads_p)
+        args32 = (apply_fn, params, dataclasses.replace(cfg, compute_dtype="float32"),
+                  graph, rollout_steps, opts, multiscale)
+        kernels32 = loss_and_grads(*args32)
+        with plain_hops():
+            loss_p32, grads_p32 = loss_and_grads(*args32)
     f32 = compare_grads(*kernels32, loss_p32, grads_p32)
     for name, r, limits in (("bf16", bf16, "loss 1e-5, cosine >= 0.99999, L2 <= 3e-3, "
                                            "worst leaf <= 0.25"),
                             ("float32", f32, "loss 1e-6, every leaf max|diff| <= "
                                              "1e-4 max|leaf| + 1e-12")):
-        log(f"[{phase}] kernels vs plain hops, {name}: loss rel diff {r['loss_rel']:.3e}; "
-            f"gradient cosine {r['cos']:.8f}, relative L2 diff {r['rel']:.3e}, worst leaf "
-            f"max|diff|/max|leaf| {r['worst_leaf']:.3e} (limits: {limits})")
-    if not (bf16["loss_rel"] <= 1e-5 and bf16["cos"] >= 0.99999 and bf16["rel"] <= 3e-3
-            and bf16["worst_leaf"] <= 0.25):
+        if r is not None:
+            log(f"[{phase}] kernels vs plain hops, {name}: loss rel diff "
+                f"{r['loss_rel']:.3e}; gradient cosine {r['cos']:.8f}, relative L2 diff "
+                f"{r['rel']:.3e}, worst leaf max|diff|/max|leaf| {r['worst_leaf']:.3e} "
+                f"(limits: {limits})")
+    if bf16 is not None and not (bf16["loss_rel"] <= 1e-5 and bf16["cos"] >= 0.99999
+                                 and bf16["rel"] <= 3e-3 and bf16["worst_leaf"] <= 0.25):
         raise AssertionError(f"[{phase}] bf16 train-step gradients through the kernels "
                              "disagree with the plain hops")
     if not (f32["loss_rel"] <= 1e-6 and f32["leaves_within"]):
@@ -959,7 +1030,7 @@ def timed_train_steps(phase, step, expected):
             host_ms.append((time.perf_counter() - h0) * 1e3)
     step_ms = statistics.median(event_ms)
     log(f"[{phase}] 6-step pushforward train step (remat, batch {step.opts.batch_size}, "
-        f"bf16): {step_ms:.1f} ms median of 3 (CUDA events "
+        f"{step.cfg.compute_dtype}): {step_ms:.1f} ms median of 3 (CUDA events "
         f"{', '.join(f'{t:.1f}' for t in event_ms)} ms; host clock "
         f"{', '.join(f'{t:.1f}' for t in host_ms)} ms); losses "
         f"{', '.join(f'{v:.6f}' for v in losses)}")
@@ -968,21 +1039,25 @@ def timed_train_steps(phase, step, expected):
     return launches, step_ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def phase_train(banded, cfg, params, apply_fn) -> dict:
+def phase_train(banded, cfg, params, apply_fn, phase="train") -> dict:
+    """The bench train step on ``banded`` (phase 5; phase 11 (b) on the
+    single-scale graph with ``phase="gnn"``, ``multiscale`` False)."""
     from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
     from mswe_gnn_tpu_torch.training.train import eval_step, loss_and_grads
 
     device = torch.device("cuda")
-    log(f"[train] band_meta {banded.band_meta}")
-    step = build_bench_train_step(banded, cfg, params, apply_fn, device=device)
+    multiscale = is_msgnn(cfg)
+    log(f"[{phase}] band_meta {banded.band_meta}")
+    step = build_bench_train_step(banded, cfg, params, apply_fn, device=device,
+                                  multiscale=multiscale)
     expected = train_launches(cfg, banded.spec, banded.band_meta, step.rollout_steps,
                               step.opts.remat)
 
     # the gradients of the first step, through the kernels and through the
     # plain hops (autograd of the plain versions)
-    args = (apply_fn, step.params, cfg, step.graph, step.rollout_steps, step.opts, True)
+    args = (apply_fn, step.params, cfg, step.graph, step.rollout_steps, step.opts, multiscale)
     loss_k, grads_k = loss_and_grads(*args)
-    check_first_grads("train", loss_k, grads_k)
+    check_first_grads(phase, loss_k, grads_k)
 
     # bf16, as trained: the kernels sum a state gradient in float32 and round
     # once, autograd of the plain hops rounds at other points, so the limits
@@ -992,18 +1067,18 @@ def phase_train(banded, cfg, params, apply_fn) -> dict:
     # held to 1e-4 of its largest value (the CPU parity tests' limit
     # against JAX); this pass shows that the bf16 gaps are rounding, not a
     # fault in the autograd Functions.
-    bf16, f32, _ = hold_grads("train", args, (loss_k, grads_k))
+    bf16, f32, _ = hold_grads(phase, args, (loss_k, grads_k))
 
-    launches, step_ms, losses, peak = timed_train_steps("train", step, expected)
+    launches, step_ms, losses, peak = timed_train_steps(phase, step, expected)
 
     steps = step.graph.y.shape[-1]
     t0 = time.perf_counter()
     metrics = eval_step(step.params, step.graph, apply_fn=apply_fn, cfg=cfg, steps=steps,
-                        opts=step.opts, multiscale=True, device=device)
+                        opts=step.opts, multiscale=multiscale, device=device)
     eval_s = time.perf_counter() - t0
     if not (math.isfinite(metrics["val_loss"]) and 0.0 <= metrics["val_CSI_005"] <= 1.0):
         raise AssertionError(f"eval_step metrics {metrics}")
-    log(f"[train] eval_step over {steps} steps in {eval_s:.2f} s: "
+    log(f"[{phase}] eval_step over {steps} steps in {eval_s:.2f} s: "
         + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
         + f"; peak device memory of the 4 train steps {peak:.2f} GiB")
     return {"launches": launches, "step_ms": step_ms, "losses": losses,
@@ -1372,6 +1447,91 @@ def hold_train_union_grads(cfg, params, apply_fn, samples, opts, rollout_steps) 
     return r
 
 
+CLI_FILES = ("best/params.npz", "best/meta.json", "last/params.npz", "last/meta.json",
+             "autosave/params.npz", "autosave/opt_state.npz", "autosave/meta.json",
+             "autosave/heartbeat", "autosave/best_val/params.npz", "metrics.jsonl",
+             "metrics.csv", "config.json", "summary.json")
+
+
+def cut_config(phase, path, cuts) -> dict:
+    """The YAML config at ``path`` (from the repository root) with ``cuts``
+    applied, each cut printed."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)) as f:
+        cfg = yaml.safe_load(f)
+    for (group, key), value in cuts.items():
+        log(f"[{phase}] cut: {group}.{key} {cfg[group].get(key)} -> {value}")
+        cfg[group][key] = value
+    return cfg
+
+
+@contextlib.contextmanager
+def cli_workdir(prefix):
+    """A temporary directory under the build directory, with the records
+    cache (``MSWE_DATA_CACHE``) inside it while the block runs."""
+    import tempfile
+
+    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
+    old_cache = os.environ.get("MSWE_DATA_CACHE")
+    with tempfile.TemporaryDirectory(prefix=prefix, dir=kernel_build.BUILD_DIR) as tmp:
+        os.environ["MSWE_DATA_CACHE"] = os.path.join(tmp, "cache")
+        try:
+            yield tmp
+        finally:
+            if old_cache is None:
+                os.environ.pop("MSWE_DATA_CACHE", None)
+            else:
+                os.environ["MSWE_DATA_CACHE"] = old_cache
+
+
+def cli_train_and_eval(phase, cfg, tmp, name) -> dict:
+    """``train`` of ``cfg`` (written to ``tmp/name.yaml``) on the card: every
+    file written, a finite 2-epoch history, the ELL forward and backward
+    launched; then ``eval`` of its ``best``, whose summary must equal the
+    training one within 1e-5. -> the config path, the run's directory, the
+    launches of each run, the history, the summaries and the train seconds."""
+    import yaml
+
+    cfg_path = os.path.join(tmp, f"{name}.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    train_dir = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    train_counts = cli_run(["train", "--config", cfg_path, "--out", train_dir])
+    train_s = time.perf_counter() - t0
+    missing = [p for p in CLI_FILES if not os.path.exists(os.path.join(train_dir, p))]
+    if missing:
+        raise AssertionError(f"[{phase}] train wrote no {missing}")
+    history = read_json(os.path.join(train_dir, "best", "meta.json"))["history"]
+    if ([r["epoch"] for r in history] != [0, 1]
+            or not all(math.isfinite(r["train_loss"]) for r in history)):
+        raise AssertionError(f"[{phase}] history {history}")
+    launched = by_kernel(train_counts)
+    if not (launched["hop"] and launched["hop_bwd"]):
+        raise AssertionError(f"[{phase}] train launched {launched}")
+    train_summary = read_json(os.path.join(train_dir, "summary.json"))
+    log(f"[{phase}] train: {train_s:.1f} s in all; epochs "
+        + ", ".join(f"{r['epoch']} (rollout_steps {r['rollout_steps']}, "
+                    f"train_loss {r['train_loss']:.6f}, "
+                    f"{r['epoch_time']:.2f} s)" for r in history)
+        + f"; launched {launched}; every file written")
+
+    eval_counts = cli_run(["eval", "--config", cfg_path, "--ckpt",
+                           os.path.join(train_dir, "best"), "--out", os.path.join(tmp, "eval")])
+    eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
+    worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
+                if k not in TIMING_KEYS)
+    if worst >= 1e-5:
+        raise AssertionError(f"[{phase}] eval {eval_summary} != train {train_summary}")
+    log(f"[{phase}] eval of the new best: the training summary within {worst:.2e}; "
+        f"mean_prediction_time_s {eval_summary['mean_prediction_time_s']:.4f}; "
+        f"launched {by_kernel(eval_counts)}")
+    return {"cfg_path": cfg_path, "train_dir": train_dir, "train_counts": train_counts,
+            "eval_counts": eval_counts, "history": history, "train_summary": train_summary,
+            "eval_summary": eval_summary, "train_s": train_s}
+
+
 def phase_cli(smi, checks) -> dict:
     """The experiment CLI at full width on a cut accuracy_tri corpus: train,
     eval of the new checkpoint, eval of the trained weights, each on the
@@ -1380,9 +1540,6 @@ def phase_cli(smi, checks) -> dict:
     a training union, each against the plain hops."""
     import importlib.util
     import shutil
-    import tempfile
-
-    import yaml
 
     from mswe_gnn_tpu_torch import config as config_lib
     from mswe_gnn_tpu_torch import main as cli
@@ -1392,108 +1549,55 @@ def phase_cli(smi, checks) -> dict:
     t_phase = time.perf_counter()
     device = torch.device("cuda")
     root = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(root, CLI_CONFIG)) as f:
-        cfg = yaml.safe_load(f)
-    for (group, key), value in CLI_CUTS.items():
-        log(f"[cli] cut: {group}.{key} {cfg[group][key]} -> {value}")
-        cfg[group][key] = value
+    cfg = cut_config("cli", CLI_CONFIG, CLI_CUTS)
     log(f"[cli] host tools: g++ {shutil.which('g++')}, scipy "
         f"{'present' if importlib.util.find_spec('scipy') else 'absent'}")
     t0 = time.perf_counter()
     native.load()
     log(f"[cli] mesh core built with g++ {' '.join(native.CXX_FLAGS)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    os.makedirs(kernel_build.BUILD_DIR, exist_ok=True)
-    old_cache = os.environ.get("MSWE_DATA_CACHE")
-    with tempfile.TemporaryDirectory(prefix="smoke_cli_", dir=kernel_build.BUILD_DIR) as tmp:
-        os.environ["MSWE_DATA_CACHE"] = os.path.join(tmp, "cache")
-        try:
-            cfg_path = os.path.join(tmp, "accuracy_tri_cut.yaml")
-            with open(cfg_path, "w") as f:
-                yaml.safe_dump(cfg, f)
-            train_dir = os.path.join(tmp, "train")
+    with cli_workdir("smoke_cli_") as tmp:
+        # (a) train, (b) eval of the new checkpoint
+        run = cli_train_and_eval("cli", cfg, tmp, "accuracy_tri_cut")
+        history = run["history"]
 
-            # (a) train
-            t0 = time.perf_counter()
-            train_counts = cli_run(["train", "--config", cfg_path, "--out", train_dir])
-            train_s = time.perf_counter() - t0
-            missing = [p for p in ("best/params.npz", "best/meta.json", "last/params.npz",
-                                   "last/meta.json", "autosave/params.npz",
-                                   "autosave/opt_state.npz", "autosave/meta.json",
-                                   "autosave/heartbeat", "autosave/best_val/params.npz",
-                                   "metrics.jsonl", "metrics.csv", "config.json",
-                                   "summary.json")
-                       if not os.path.exists(os.path.join(train_dir, p))]
-            if missing:
-                raise AssertionError(f"[cli] train wrote no {missing}")
-            history = read_json(os.path.join(train_dir, "best", "meta.json"))["history"]
-            if ([r["epoch"] for r in history] != [0, 1]
-                    or not all(math.isfinite(r["train_loss"]) for r in history)):
-                raise AssertionError(f"[cli] history {history}")
-            launched = by_kernel(train_counts)
-            if not (launched["hop"] and launched["hop_bwd"]):
-                raise AssertionError(f"[cli] train launched {launched}")
-            train_summary = read_json(os.path.join(train_dir, "summary.json"))
-            log(f"[cli] train: {train_s:.1f} s in all; epochs "
-                + ", ".join(f"{r['epoch']} (rollout_steps {r['rollout_steps']}, "
-                            f"train_loss {r['train_loss']:.6f}, "
-                            f"{r['epoch_time']:.2f} s)" for r in history)
-                + f"; launched {launched}; every file written")
+        # (c) eval of the committed trained weights
+        trained_counts = cli_run(["eval", "--config", run["cfg_path"], "--ckpt",
+                                  os.path.join(root, TRAINED_WEIGHTS), "--out",
+                                  os.path.join(tmp, "trained")])
+        trained = read_json(os.path.join(tmp, "trained", "summary.json"))
+        if not all(math.isfinite(v) for v in trained.values()):
+            raise AssertionError(f"[cli] trained-weights summary {trained}")
 
-            # (b) eval of the new checkpoint
-            eval_counts = cli_run(["eval", "--config", cfg_path, "--ckpt",
-                                   os.path.join(train_dir, "best"), "--out",
-                                   os.path.join(tmp, "eval")])
-            eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
-            worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
-                        if k not in TIMING_KEYS)
-            if worst >= 1e-5:
-                raise AssertionError(f"[cli] eval {eval_summary} != train {train_summary}")
-            log(f"[cli] eval of the new best: the training summary within {worst:.2e}; "
-                f"launched {by_kernel(eval_counts)}")
+        # the kernels at the shapes of the three runs, on their own unions
+        full = config_lib.with_defaults(cfg)
+        train, _, test, _, _ = cli.prepare_data(full)
+        mcfg, params, apply_fn = cli.build_experiment_model(full, test[0], device=device)
+        params = cli.restore_weights(os.path.join(root, TRAINED_WEIGHTS), params)
+        opts = cli.trainer_options(full)
+        most = max(opts.batch_size, full["trainer_options"]["eval_batch_size"])
+        for path, samples, counts in (("cli_train", train, run["train_counts"]),
+                                      ("cli_eval", test, run["eval_counts"]),
+                                      ("cli_eval_trained", test, trained_counts)):
+            hold_path_shapes(checks, path, mcfg, params, samples, counts, most)
+        eval_b = full["trainer_options"]["eval_batch_size"]
+        union_err = hold_union_rollout(mcfg, params, apply_fn, test[:eval_b])
+        grads = hold_train_union_grads(mcfg, params, apply_fn, train, opts,
+                                       history[-1]["rollout_steps"])
 
-            # (c) eval of the committed trained weights
-            trained_counts = cli_run(["eval", "--config", cfg_path, "--ckpt",
-                                      os.path.join(root, TRAINED_WEIGHTS), "--out",
-                                      os.path.join(tmp, "trained")])
-            trained = read_json(os.path.join(tmp, "trained", "summary.json"))
-            if not all(math.isfinite(v) for v in trained.values()):
-                raise AssertionError(f"[cli] trained-weights summary {trained}")
-
-            # the kernels at the shapes of the three runs, on their own unions
-            full = config_lib.with_defaults(cfg)
-            train, _, test, _, _ = cli.prepare_data(full)
-            mcfg, params, apply_fn = cli.build_experiment_model(full, test[0], device=device)
-            params = cli.restore_weights(os.path.join(root, TRAINED_WEIGHTS), params)
-            opts = cli.trainer_options(full)
-            most = max(opts.batch_size, full["trainer_options"]["eval_batch_size"])
-            for path, samples, counts in (("cli_train", train, train_counts),
-                                          ("cli_eval", test, eval_counts),
-                                          ("cli_eval_trained", test, trained_counts)):
-                hold_path_shapes(checks, path, mcfg, params, samples, counts, most)
-            eval_b = full["trainer_options"]["eval_batch_size"]
-            union_err = hold_union_rollout(mcfg, params, apply_fn, test[:eval_b])
-            grads = hold_train_union_grads(mcfg, params, apply_fn, train, opts,
-                                           history[-1]["rollout_steps"])
-
-            # one test graph's full rollout: kernels against the plain hops
-            steps = int(test[0].y.shape[-1])
-            got = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
-            with plain_hops():
-                want = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
-            torch.cuda.synchronize()
-            check_rollout("[cli] trained-weights rollout", got, test[0].to(device), steps)
-            ok, err = within_limit(got, want, torch.float32)
-            if not ok:
-                raise AssertionError(f"[cli] trained-weights rollout through the kernels "
-                                     f"differs from the plain hops: max|err| {err:.3e}")
-            if torch.backends.cuda.matmul.allow_tf32:
-                raise AssertionError("[cli] TF32 was turned on on the float32 CLI path")
-        finally:
-            if old_cache is None:
-                os.environ.pop("MSWE_DATA_CACHE", None)
-            else:
-                os.environ["MSWE_DATA_CACHE"] = old_cache
+        # one test graph's full rollout: kernels against the plain hops
+        steps = int(test[0].y.shape[-1])
+        got = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
+        with plain_hops():
+            want = rollout(apply_fn, params, mcfg, test[0], steps, device=device)
+        torch.cuda.synchronize()
+        check_rollout("[cli] trained-weights rollout", got, test[0].to(device), steps)
+        ok, err = within_limit(got, want, torch.float32)
+        if not ok:
+            raise AssertionError(f"[cli] trained-weights rollout through the kernels "
+                                 f"differs from the plain hops: max|err| {err:.3e}")
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("[cli] TF32 was turned on on the float32 CLI path")
     log(f"[cli] trained weights ({TRAINED_WEIGHTS}) on the cut corpus: test_CSI_005 "
         f"{trained['test_CSI_005']:.4f}, test_MAE_WD {trained['test_MAE_WD']:.4f}, "
         f"mean_prediction_time_s {trained['mean_prediction_time_s']:.4f} "
@@ -1507,27 +1611,174 @@ def phase_cli(smi, checks) -> dict:
         + ", ".join(f"{r['epoch_time']:.2f}" for r in history)
         + f" s; eval mean_prediction_time_s {trained['mean_prediction_time_s']:.4f}; "
         f"{smi}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": {"cli_train": train_counts, "cli_eval": eval_counts,
+    return {"launches": {"cli_train": run["train_counts"], "cli_eval": run["eval_counts"],
                          "cli_eval_trained": trained_counts},
             "epoch_s": [r["epoch_time"] for r in history], "trained": trained,
             "union_rollout_err": union_err, "train_union_grads": grads}
 
 
+# ---------------------------------------------------------------- phase 11
+GNN_CLI_CONFIG = "configs/pareto_gnn.yaml"
+GNN_CLI_CUTS = {("synthetic_data", "n_sims"): 12, ("trainer_options", "max_epochs"): 2,
+                ("trainer_options", "curriculum_epoch"): 1}
+BASELINES = ("GNN_L", "GNN_A", "GAT")
+
+
+def hold_baselines(sample) -> dict:
+    """(c) the Cheb / TAG / GAT baselines at pareto_gnn's width on the
+    single-scale graph: step 0 on the card against the same forward on the
+    CPU (float32, atol 1e-4: ``index_add`` on CUDA adds with atomics, so the
+    sums differ in their last bits), then a 47-step rollout, checked and
+    timed as in phase 4. They launch no hop kernel: their gathers and
+    segment sums are library calls (ops/segment.py)."""
+    from mswe_gnn_tpu_torch import tree_to
+    from mswe_gnn_tpu_torch.bench_problem import build_pareto_gnn_model
+    from mswe_gnn_tpu_torch.models import count_params
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+
+    device = torch.device("cuda")
+    steps = sample.y.shape[-1]
+    graph, gt = sample.to(device), first_step(sample)
+    out, counts = {}, collections.Counter()
+    for kind in BASELINES:
+        cfg, params, apply_fn = build_pareto_gnn_model(sample, device=device, type_GNN=kind)
+        reset_all_launches()
+        with torch.inference_mode():
+            got = apply_fn(params, cfg, gt.to(device)).cpu()
+            want = apply_fn(tree_to(params, "cpu"), cfg, gt)
+        err = float((got - want).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"[gnn] {kind} step 0 on the card differs from the CPU: "
+                                 f"max|err| {err:.3e}")
+        preds = rollout(apply_fn, params, cfg, graph, steps, device=device)
+        torch.cuda.synchronize()
+        check_rollout(f"[gnn] the {kind} rollout", preds, graph, steps)
+        counts += read_launches()
+        rollout_ms, event_ms, _ = timed_rollouts(apply_fn, params, cfg, graph, steps, device)
+        log(f"[gnn] (c) {kind} ({count_params(params)} parameters): step 0 card vs CPU "
+            f"max|err| {err:.3e} (limit 1e-4); {steps}-step rollout {rollout_ms:.1f} ms "
+            f"median of 3 (CUDA events {', '.join(f'{t:.1f}' for t in event_ms)} ms); "
+            f"max prediction {float(preds.max()):.4f}")
+        out[kind] = {"rollout_ms": rollout_ms, "step0_err": err,
+                     "parameters": count_params(params)}
+    if sum(counts.values()):
+        raise AssertionError(f"[gnn] the baselines launched hop kernels: {dict(counts)}")
+    return out
+
+
+def hold_learned_pooling(sample) -> dict:
+    """(e) the bench MSGNN with learned pooling on the 3-scale bench graph:
+    one step through the kernels, its launches held against the config's,
+    against the same step through the plain hops within phase 4's limit."""
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_model
+    from mswe_gnn_tpu_torch.models import count_params, prepare_graph
+
+    device = torch.device("cuda")
+    cfg, params, apply_fn = build_bench_model(sample, device=device, learned_pooling=True)
+    with torch.inference_mode():
+        gt = first_step(prepare_graph(params, cfg, sample.to(device)))
+        reset_all_launches()
+        p_kernel = apply_fn(params, cfg, gt)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        with plain_hops():
+            p_plain = apply_fn(params, cfg, gt)
+    torch.cuda.synchronize()
+    hold_launches("gnn", "(e) one learned-pooling MSGNN step", counts,
+                  hops_per_step(cfg, sample.spec))
+    limit = 2 * 2.0 ** -8 * float(p_plain.abs().max())
+    err = float((p_kernel - p_plain).abs().max())
+    log(f"[gnn] (e) MSGNN with learned pooling ({count_params(params)} parameters, "
+        f"{cfg.compute_dtype}): step 0 kernel vs plain hop max|err| {err:.3e} "
+        f"(limit {limit:.3e}); wet share {float((p_kernel[:, 0] > 0).float().mean()):.3f}")
+    if not (err <= limit and bool(torch.isfinite(p_kernel).all())):
+        raise AssertionError("[gnn] the learned-pooling step through the kernels "
+                             "disagrees with the plain hops")
+    return {"launches": counts, "err": err}
+
+
+def phase_gnn(smi, checks, bench_sample) -> dict:
+    """The single-scale SWE-GNN of ``configs/pareto_gnn.yaml`` at its full
+    width (F=64, K=10, 2 layers, float32) on the 152x152 grid's single-scale
+    graph: (a) the 47-step rollout, all ELL; (b) the train step with the
+    band plan; (c) the baselines; (d) the CLI on a cut pareto_gnn corpus,
+    every launched shape held (into ``checks``); (e) MSGNN's learned pooling
+    on ``bench_sample``."""
+    from mswe_gnn_tpu_torch import config as config_lib
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_sample, build_pareto_gnn_model
+    from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    sample, mesh = build_bench_sample(num_scales=1)
+    banded = attach_band_plan(sample)
+    log(f"[gnn] single-scale bench graph and its band plan built on the host in "
+        f"{time.perf_counter() - t0:.1f} s; band_meta {banded.band_meta}")
+    cfg, params, apply_fn = build_pareto_gnn_model(sample, device=device)
+
+    # (a) serving, (b) the train step with the band plan
+    serving = phase_serving(sample, mesh, cfg, params, apply_fn, phase="gnn")
+    train = phase_train(banded, cfg, params, apply_fn, phase="gnn")
+    t_c = time.perf_counter()
+    baselines = hold_baselines(sample)
+    log(f"[gnn] (c) took {time.perf_counter() - t_c:.1f} s")
+
+    # (d) the CLI: train and eval on a cut pareto_gnn corpus
+    t_d = time.perf_counter()
+    cut = cut_config("gnn", GNN_CLI_CONFIG, GNN_CLI_CUTS)
+    with cli_workdir("smoke_gnn_cli_") as tmp:
+        run = cli_train_and_eval("gnn", cut, tmp, "pareto_gnn_cut")
+        full = config_lib.with_defaults(cut)
+        train_s, _, test, _, _ = cli.prepare_data(full)
+        mcfg, mparams, _ = cli.build_experiment_model(full, test[0], device=device)
+        mparams = cli.restore_weights(os.path.join(run["train_dir"], "best"), mparams)
+        opts = cli.trainer_options(full)
+        most = max(opts.batch_size, int(full["trainer_options"].get("eval_batch_size", 1)))
+        for path, samples, counts in (("gnn_cli_train", train_s, run["train_counts"]),
+                                      ("gnn_cli_eval", test, run["eval_counts"])):
+            hold_path_shapes(checks, path, mcfg, mparams, samples, counts, most)
+    log(f"[gnn] (d) took {time.perf_counter() - t_d:.1f} s")
+
+    pooling = hold_learned_pooling(bench_sample)
+    log(f"[gnn] summary: (a) {serving['launches'][('hop', sample.num_nodes, sample.num_nodes)]} "
+        f"ELL launches, rollout {serving['rollout_ms']:.1f} ms; (b) train step "
+        f"{train['step_ms']:.1f} ms, launched {by_kernel(train['launches'])}; (c) "
+        + ", ".join(f"{k} {v['rollout_ms']:.1f} ms" for k, v in baselines.items())
+        + f"; (d) epochs " + ", ".join(f"{r['epoch_time']:.2f}" for r in run["history"])
+        + f" s, eval mean_prediction_time_s "
+        f"{run['eval_summary']['mean_prediction_time_s']:.4f}; (e) max|err| "
+        f"{pooling['err']:.3e}; {smi}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"gnn_serving": serving["launches"],
+                         "gnn_train_step": train["launches"],
+                         "gnn_cli_train": run["train_counts"],
+                         "gnn_cli_eval": run["eval_counts"],
+                         "msgnn_learned_pooling": pooling["launches"]},
+            "rollout_ms": serving["rollout_ms"], "train_step_ms": train["step_ms"],
+            "cache": serving["cache"], "spec": sample.spec, "banded": banded,
+            "baselines": baselines, "epoch_s": [r["epoch_time"] for r in run["history"]],
+            "eval_s_per_sim": run["eval_summary"]["mean_prediction_time_s"]}
+
+
 # ---------------------------------------------------------------- phase 6
-def phase_timing(cases, flush, paths, checks) -> dict:
+def phase_timing(cases, flush, paths, checks, path_dtypes=None) -> dict:
     """Holds every case of ``timing_cases`` bit-equal to its plain version on
     the case's own inputs (into ``checks``; the union shapes are held here
     and nowhere else), then times it (kernel, L2 flushed, plain version),
     with the launch floor before and after. ``paths`` maps each
     path driven (``serving``, ``train_step``, the batched ones) to the
     launches the wrappers counted there by ``(kernel, Nd, Ns)``; each row
-    carries the launches of its shape on every path, and each kernel gets
-    its sum of launches x time on each path."""
+    carries the launches of its shape on every path whose dtype
+    (``path_dtypes``, bf16 where not named) is the row's, and each kernel
+    gets its sum of launches x time on each path."""
+    path_dtypes = path_dtypes or {}
     floors = [launch_floor_ms()]
     rows = {kernel: [] for kernel in KERNELS}
     for c in cases:
         got, want = c["run"](), c["plain"]()
-        err = checks.hold(c["kernel"], c["shape"], torch.bfloat16, "timing",
+        dtype = {v: k for k, v in DTYPE_NAMES.items()}[c["dtype"]]
+        err = checks.hold(c["kernel"], c["shape"], dtype, "timing",
                           got if isinstance(got, tuple) else (got,),
                           want if isinstance(want, tuple) else (want,), exact=True)
         del got, want
@@ -1535,7 +1786,9 @@ def phase_timing(cases, flush, paths, checks) -> dict:
         row["max_abs_err"] = err
         row.update({k: v for k, v in c.items() if k not in ("run", "plain", "key")},
                    n_dst=c["key"][1], n_src=c["key"][2],
-                   launches={path: counts[c["key"]] for path, counts in paths.items()})
+                   launches={path: (counts[c["key"]]
+                                    if path_dtypes.get(path, "bf16") == c["dtype"] else 0)
+                             for path, counts in paths.items()})
         rows[c["kernel"]].append(row)
     log(f"[timing] {len(cases)} cases held bit-equal to their plain versions on their own "
         f"inputs")
@@ -1597,6 +1850,7 @@ def main() -> None:
     batched_train = phase_batched_train(banded, sample, cfg, params, apply_fn)
     phase_trainer()
     cli = phase_cli(smi, checks)
+    gnn = phase_gnn(smi, checks, sample)
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -1608,7 +1862,15 @@ def main() -> None:
     paths.update({f"serving_b{b}": counts for b, counts in batched["launches"].items()})
     paths[f"train_step_b{TRAIN_BATCH}"] = batched_train["launches"]
     paths.update(cli["launches"])
-    timing = phase_timing(cases, flush, paths, checks)
+    paths.update(gnn["launches"])
+    # pareto_gnn's float32 hops on its own table and plan (the same shape as
+    # the bench's scale 0, another dtype)
+    cases += ell_timing_cases(gnn["cache"], gnn["spec"], set(), "gnn ", torch.float32)
+    cases += band_timing_cases(gnn["banded"], "gnn plan", torch.float32)
+    path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
+                                 "gnn_train_step", "gnn_cli_train", "gnn_cli_eval"),
+                                "float32")
+    timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
         kernel_entry("hop", SOURCES["hop"], "mswe_gnn_tpu/ops/pallas_hop.py:54",
@@ -1631,6 +1893,13 @@ def main() -> None:
         k["cli_epoch_s"] = cli["epoch_s"]
     kernels[0]["cli_trained_eval"] = {key: cli["trained"][key] for key in (
         "test_CSI_005", "test_MAE_WD", "mean_prediction_time_s")}
+    kernels[0]["gnn_rollout_ms"] = gnn["rollout_ms"]
+    kernels[0]["gnn_baseline_rollout_ms"] = {k: v["rollout_ms"]
+                                             for k, v in gnn["baselines"].items()}
+    for k in kernels[:2]:
+        k["gnn_cli_epoch_s"] = gnn["epoch_s"]
+    for k in kernels[2:]:
+        k["gnn_train_step_ms"] = gnn["train_step_ms"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,20 +8,29 @@ bench.py draws it, so both packages build the same graph. The weights are
 initialised by the port from build_model's default seed (torch.Generator),
 so they are not the JAX package's numbers.
 
+``build_bench_sample(num_scales=1)`` gives the same grid's single-scale dual
+graph (23,108 nodes, padded to 23,168), the graph of the single-scale GNN,
+and ``build_pareto_gnn_model`` that model as ``configs/pareto_gnn.yaml``
+defines it (GNN / SWEGNN, F=64, K=10, 2 layers, mlp_layers 3, float32,
+251,604 parameters), through ``config.with_defaults`` as the CLI builds it.
+
 ``build_bench_sample(band=True)`` attaches the band plan with its defaults,
 as bench.py:121-131 does; ``BenchTrainStep`` is the train step of
 bench.py:304-341 (``bench_training``): a 6-step pushforward with remat,
 ``velocity_scaler=7.0`` and ``make_optimizer(opts, 1)``. The rollout problem
 at batch b is ``concat_graphs([sample] * b)``, made by the caller as
 bench.py:355-359 does; ``build_bench_train_step(batch=b)`` trains that union,
-as bench.py:311-314 does (the union carries no band plan).
+as bench.py:311-314 does (the union carries no band plan); its
+``multiscale`` flag is False for the single-scale GNN.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
+from mswe_gnn_tpu_torch import config as config_lib
 from mswe_gnn_tpu_torch import resolve_device, tree_to
 from mswe_gnn_tpu_torch.data.dataset import (
     SimulationRecord, fit_dataset_scalers, make_spec, process_record,
@@ -38,15 +47,18 @@ from mswe_gnn_tpu_torch.training.train import (Optimizer, TrainerOptions, clone_
 
 NUM_SCALES, PREVIOUS_T = 3, 3
 TRAIN_ROLLOUT_STEPS = 6
+PARETO_GNN_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                 "configs", "pareto_gnn.yaml")
 
 
-def build_bench_sample(nx=152, ny=152, T=48, band=False):
+def build_bench_sample(nx=152, ny=152, T=48, band=False, num_scales=NUM_SCALES):
     """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
     ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take;
-    ``band`` attaches the band plan (``attach_band_plan`` defaults)."""
+    ``band`` attaches the band plan (``attach_band_plan`` defaults);
+    ``num_scales=1`` gives the grid's single-scale dual graph."""
     rng = np.random.default_rng(0)
     dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
-    mesh = make_multiscale_grid(nx, ny, 100.0, NUM_SCALES, dem_fn, n_bc=4)
+    mesh = make_multiscale_grid(nx, ny, 100.0, num_scales, dem_fn, n_bc=4)
     n = mesh.num_nodes
     wd = np.abs(rng.normal(0.4, 0.3, (n, T))).astype(np.float32)
     vx = rng.normal(0, 0.3, (n, T)).astype(np.float32)
@@ -66,18 +78,33 @@ def build_bench_sample(nx=152, ny=152, T=48, band=False):
     return sample, mesh
 
 
-def build_bench_model(sample, device=None):
+def build_bench_model(sample, device=None, **overrides):
     """-> (cfg, params, apply_fn) of the bench model on ``device`` (default:
-    the GPU), weights from build_model's default seed."""
+    the GPU), weights from build_model's default seed; ``overrides`` replace
+    keys of its model dict (e.g. ``learned_pooling=True``)."""
     return build_model(
         {"model_type": "MSGNN", "hid_features": 64, "K": 5, "mlp_layers": 3,
          "learned_residuals": True, "with_WL": True, "gnn_activation": "tanh",
          "mlp_activation": "prelu", "compute_dtype": "bfloat16",
-         "flat_hop_threshold": 2048},
+         "flat_hop_threshold": 2048, **overrides},
         num_node_features=sample.x_static.shape[1] + sample.x_dynamic.shape[1],
         num_edge_features=sample.edge_attr.shape[1],
         num_scales=sample.spec.num_scales, previous_t=sample.previous_t,
         device=device)
+
+
+def build_pareto_gnn_model(sample, device=None, **overrides):
+    """-> (cfg, params, apply_fn) of ``configs/pareto_gnn.yaml``'s model
+    (its ``models`` group over ``config.with_defaults``, as the CLI builds
+    it; ``overrides`` replace keys of that group, e.g. ``type_GNN``) on
+    ``device`` (default: the GPU), weights from the config's seed."""
+    cfg = config_lib.with_defaults(config_lib.read_config(PARETO_GNN_CONFIG))
+    return build_model(
+        {**cfg["models"], **overrides},
+        num_node_features=sample.x_static.shape[1] + sample.x_dynamic.shape[1],
+        num_edge_features=sample.edge_attr.shape[1],
+        num_scales=sample.spec.num_scales,
+        previous_t=cfg["temporal_dataset_parameters"]["previous_t"], device=device)
 
 
 @dataclasses.dataclass
@@ -93,21 +120,23 @@ class BenchTrainStep:
     optimizer: Optimizer
     opt_state: dict
     rollout_steps: int = TRAIN_ROLLOUT_STEPS
+    multiscale: bool = True
 
     def __call__(self):
         _, _, loss = train_step(self.params, self.opt_state, self.graph,
                                 apply_fn=self.apply_fn, cfg=self.cfg,
                                 rollout_steps=self.rollout_steps, opts=self.opts,
-                                multiscale=True, optimizer=self.optimizer,
+                                multiscale=self.multiscale, optimizer=self.optimizer,
                                 device=self.graph.x_static.device)
         return loss
 
 
 def build_bench_train_step(sample, cfg, params, apply_fn, device=None,
-                           batch=1) -> BenchTrainStep:
+                           batch=1, multiscale=True) -> BenchTrainStep:
     """bench_training's settings on ``device`` (default: the GPU): the
     graph, or the union of ``batch`` copies of it, and a copy of the
-    parameters moved there, a fresh optimizer."""
+    parameters moved there, a fresh optimizer; ``multiscale`` as the
+    trainer passes it (False for the single-scale GNN)."""
     device = resolve_device(device)
     sample = concat_graphs([sample] * batch)
     opts = TrainerOptions(batch_size=batch, velocity_scaler=7.0, remat=True)
@@ -115,4 +144,4 @@ def build_bench_train_step(sample, cfg, params, apply_fn, device=None,
     params = clone_tree(tree_to(params, device))
     return BenchTrainStep(apply_fn=apply_fn, cfg=cfg, params=params,
                           graph=sample.to(device), opts=opts, optimizer=optimizer,
-                          opt_state=optimizer.init(params))
+                          opt_state=optimizer.init(params), multiscale=multiscale)

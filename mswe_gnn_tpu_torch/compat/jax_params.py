@@ -1,10 +1,12 @@
 """Parameter bridge between the JAX package and the port.
 
-The JAX package keeps MSGNN parameters as a pytree of nested dicts and lists
-(key names in mswe_gnn_tpu/models/msgnn.py:123-161, weights stored
-``[in, out]``); the port keeps the same tree of torch tensors. So the bridge
-is a leaf-by-leaf conversion, checked against the port's own tree for the
-config: every key, list length and shape must match.
+The JAX package keeps a model's parameters as a pytree of nested dicts and
+lists (key names in mswe_gnn_tpu/models/msgnn.py:123-161 for the MSGNN,
+``pooling_mlp`` included, and models/gnn.py:86-135 for the single-scale GNN
+of every ``type_gnn``; weights stored ``[in, out]``); the port keeps the same
+tree of torch tensors. So the bridge is a leaf-by-leaf conversion, checked
+against the port's own tree for the config: every key, list length and
+shape must match.
 
 The caller hands in plain numpy leaves (``jax.tree_util.tree_map(np.asarray,
 params)``); this module imports no JAX.
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from mswe_gnn_tpu_torch import resolve_device
+from mswe_gnn_tpu_torch.models.gnn import GNNConfig, init_gnn
 from mswe_gnn_tpu_torch.models.msgnn import MSGNNConfig, init_msgnn
 
 
@@ -37,10 +40,12 @@ def _convert(tree, like, path: str, device):
     raise TypeError(f"{path}: unexpected node {type(like).__name__}")
 
 
-def load_jax_params(tree: dict, cfg: MSGNNConfig, device=None) -> dict:
-    """JAX ``init_msgnn``-layout tree of numpy arrays -> the port's parameter
-    tree on ``device`` (default: the GPU; raises when there is none)."""
-    like = init_msgnn(torch.Generator().manual_seed(0), cfg)
+def load_jax_params(tree: dict, cfg: MSGNNConfig | GNNConfig, device=None) -> dict:
+    """JAX ``init_msgnn``- or ``init_gnn``-layout tree of numpy arrays (as
+    ``cfg`` is an MSGNN or a GNN config) -> the port's parameter tree on
+    ``device`` (default: the GPU; raises when there is none)."""
+    init = init_gnn if isinstance(cfg, GNNConfig) else init_msgnn
+    like = init(torch.Generator().manual_seed(0), cfg)
     return _convert(tree, like, "params", resolve_device(device))
 
 

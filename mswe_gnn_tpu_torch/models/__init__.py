@@ -1,9 +1,12 @@
-"""Models of the port: the MSGNN V-cycle over SWEGNN layers."""
+"""Models of the port: the MSGNN V-cycle over SWEGNN layers, and the
+single-scale GNN (SWEGNN or a Cheb / TAG / GAT baseline)."""
+from mswe_gnn_tpu_torch.models.gnn import GNNConfig, apply_gnn, init_gnn
 from mswe_gnn_tpu_torch.models.msgnn import MSGNNConfig, apply_msgnn, init_msgnn
 from mswe_gnn_tpu_torch.models.prepare import prepare_graph
 from mswe_gnn_tpu_torch.models.registry import build_model, count_params
-from mswe_gnn_tpu_torch.models.swegnn import SWEGNNConfig, apply_swegnn_block, init_swegnn
+from mswe_gnn_tpu_torch.models.swegnn import (SWEGNNConfig, apply_swegnn, apply_swegnn_block,
+                                              init_swegnn)
 
-__all__ = ["MSGNNConfig", "SWEGNNConfig", "apply_msgnn", "apply_swegnn_block",
-           "build_model", "count_params", "init_msgnn", "init_swegnn",
-           "prepare_graph"]
+__all__ = ["GNNConfig", "MSGNNConfig", "SWEGNNConfig", "apply_gnn", "apply_msgnn",
+           "apply_swegnn", "apply_swegnn_block", "build_model", "count_params", "init_gnn",
+           "init_msgnn", "init_swegnn", "prepare_graph"]

@@ -11,8 +11,10 @@ V-cycle (scales ordered finest=0 ... coarsest=L-1):
 The state is carried as per-scale blocks; each processor, pooling and
 un-pooling call touches only its scale's [N_scale, F] rows. A scale with a
 band plan (``graph.band_plan``, ops/band_hop.py:attach_band_plan) runs its
-processor hops through the banded kernel. Learned pooling is not ported yet
-and raises.
+processor hops through the banded kernel. With ``learned_pooling`` an MLP
+over [fine row | coarse row] gives every transfer edge its value, and the
+coarse node takes the mean over its transfer edges (a segment mean,
+ops/segment.py).
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ from mswe_gnn_tpu_torch import NUM_WATER_VARS
 from mswe_gnn_tpu_torch.graph import FloodGraph
 from mswe_gnn_tpu_torch.models import base as base_model
 from mswe_gnn_tpu_torch.models.activations import apply_activation, init_activation
-from mswe_gnn_tpu_torch.models.mlp import apply_mlp, init_mlp
+from mswe_gnn_tpu_torch.models.mlp import apply_linear, apply_mlp, init_mlp
 from mswe_gnn_tpu_torch.models.prepare import _msgnn_cache
 from mswe_gnn_tpu_torch.models.swegnn import SWEGNNConfig, apply_swegnn_block, init_swegnn
+from mswe_gnn_tpu_torch.ops.segment import gather, segment_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +107,6 @@ class MSGNNConfig:
 def init_msgnn(gen: torch.Generator, cfg: MSGNNConfig) -> dict:
     """Parameters with the JAX package's tree layout and init distributions
     (not its numbers: torch.Generator is not jax.random)."""
-    if cfg.learned_pooling:
-        raise NotImplementedError("learned_pooling is not ported yet")
     h = cfg.hid_features
     params = {}
     if cfg.edge_mlp:
@@ -120,6 +121,10 @@ def init_msgnn(gen: torch.Generator, cfg: MSGNNConfig) -> dict:
         n_layers=cfg.mlp_layers, bias=True, activation=cfg.mlp_activation)
     params["intra_scale_gnn"] = [init_swegnn(gen, cfg.intra_cfg())
                                  for _ in range(cfg.num_scales - 1)]
+    if cfg.learned_pooling:
+        params["pooling_mlp"] = init_mlp(
+            gen, h * 2, h, h,
+            n_layers=cfg.mlp_layers, bias=False, activation=cfg.mlp_activation)
     params["gnn_processor"] = [init_swegnn(gen, cfg.processor_cfg(K))
                                for K in cfg.k_schedule]
     params["gnn_act"] = init_activation(cfg.gnn_activation)
@@ -138,14 +143,23 @@ def _pool_block(params, cfg: MSGNNConfig, x_fine, pool_src, pool_mask):
     """Mean-pool fine-block rows onto the coarse block through the slot
     sources ``pool_src [Nc, D]`` (reference models/gnn.py:242-257). Coarse
     nodes that receive nothing become zero."""
-    if cfg.learned_pooling:
-        raise NotImplementedError("learned_pooling is not ported yet")
     sums = torch.zeros(pool_src.shape[0], x_fine.shape[1], dtype=x_fine.dtype,
                        device=x_fine.device)
     for d in range(pool_src.shape[1]):
         sums = sums + x_fine.index_select(0, pool_src[:, d]) * pool_mask[:, d:d + 1]
     cnt = pool_mask.sum(dim=1)[:, None]
     return torch.where(cnt > 0, sums / cnt.clamp_min(1.0), torch.zeros_like(sums))
+
+
+def _learned_pool_block(params, cfg: MSGNNConfig, x_fine, coarse_feats, fine_local,
+                        coarse_local, intra_mask):
+    """Learned pooling (msgnn.py:174-178, :198-199 with the prepared cache):
+    the pooling MLP over [fine row | coarse row] of every transfer edge, then
+    the mean over each coarse node's real transfer edges. A coarse node that
+    receives nothing becomes zero."""
+    e = torch.cat([gather(x_fine, fine_local), gather(coarse_feats, coarse_local)], -1)
+    vals = apply_mlp(params["pooling_mlp"], e, activation=cfg.mlp_activation)
+    return segment_mean(vals, coarse_local, coarse_feats.shape[0], weights=intra_mask)
 
 
 def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tensor:
@@ -199,8 +213,22 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
     for i in range(L - 1):
         xd_b[i] = processor(i, i)
         x_down_b[i] = xd_b[i]
-        psrc, pmask = cache["pools"][i]
-        pooled = _pool_block(params, cfg, xd_b[i], psrc, pmask)
+        if cfg.learned_pooling:
+            # the pooling MLP reads the coarse rows after the processor
+            # applied H_0 to the full array (msgnn.py:309-314)
+            coarse_feats = xd_b[i + 1]
+            if cfg.with_filter_matrix:
+                coarse_feats = apply_linear(params["gnn_processor"][i]["filters"][0],
+                                            coarse_feats)
+            isl = spec.intra_edge_slice(i)
+            pooled = _learned_pool_block(
+                params, cfg, xd_b[i], coarse_feats,
+                graph.intra_edge_index[1, isl].long() - spec.node_ptr[i],
+                graph.intra_edge_index[0, isl].long() - spec.node_ptr[i + 1],
+                graph.intra_edge_mask[isl])
+        else:
+            psrc, pmask = cache["pools"][i]
+            pooled = _pool_block(params, cfg, xd_b[i], psrc, pmask)
         # pooling replaces the state: every non-coarse scale becomes zero
         for j in range(L):
             xd_b[j] = zeros_b[j]
@@ -219,7 +247,7 @@ def apply_msgnn(params: dict, cfg: MSGNNConfig, graph: FloodGraph) -> torch.Tens
             xd_b[lvl] = apply_swegnn_block(
                 params["intra_scale_gnn"][i], cfg.intra_cfg(),
                 xs_b[scale], xd_b[scale], xs_b[lvl], xd_b[lvl], None, None,
-                same_block=False, dst_sorted=False, agg_table=utab,
+                same_block=False, agg_table=utab,
                 agg_mask=umask, src_slot_table=usrc, sub_blocks=graph.num_graphs,
                 out_table=out_table)
             if cfg.skip_connections:

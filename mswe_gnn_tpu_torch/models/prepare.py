@@ -1,5 +1,5 @@
 """Loop-invariant graph work, done once per rollout (port of
-mswe_gnn_tpu/models/prepare.py for the MSGNN).
+mswe_gnn_tpu/models/prepare.py: the MSGNN and the single-scale SWE-GNN).
 
 Per rollout step the model would recompute work that depends only on the
 parameters and the graph topology: the encoded edge features, the
@@ -98,11 +98,33 @@ def _msgnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
             "unpools": tuple(unpools)}
 
 
+def _gnn_cache(params: dict, cfg, graph: FloodGraph) -> dict:
+    """The single-scale GNN's one table set, over every node of the graph
+    (JAX prepare.py:63-74), in the layout of the MSGNN cache's scales (no
+    pooling levels)."""
+    edge_attr = graph.edge_attr
+    if cfg.edge_mlp:
+        edge_attr = apply_mlp(params["edge_encoder"], edge_attr,
+                              activation=cfg.mlp_activation)
+    tab = graph.in_edge_table.long()
+    ea_slots = edge_attr.index_select(0, tab.reshape(-1)).view(*tab.shape, -1)
+    srcs = _slot_sources(graph.edge_index[0].long(), tab)
+    _check_rows(srcs, graph.num_nodes, "slot sources")
+    out_table = _out_table(srcs, graph.num_nodes, graph.in_edge_mask, "out-slots")
+    return {"scales": ((tab, graph.in_edge_mask, srcs, ea_slots, out_table),),
+            "pools": (), "unpools": ()}
+
+
 def prepare_graph(params: dict, cfg, graph: FloodGraph) -> FloodGraph:
-    """Attach the loop-invariant ELL cache for an MSGNN config (a no-op when
-    a cache is already attached)."""
+    """Attach the loop-invariant ELL cache for ``cfg``'s model family
+    (JAX prepare.py:77-89). The graph comes back unchanged when a cache is
+    already attached or the model has no cached path (the Cheb / TAG / GAT
+    baselines)."""
     if graph.ell_cache is not None:
         return graph
-    if type(cfg).__name__ != "MSGNNConfig":
-        raise NotImplementedError(f"prepare_graph: {type(cfg).__name__} is not ported yet")
-    return graph.replace(ell_cache=_msgnn_cache(params, cfg, graph))
+    kind = type(cfg).__name__     # by name: the model modules import this one
+    if kind == "MSGNNConfig":
+        return graph.replace(ell_cache=_msgnn_cache(params, cfg, graph))
+    if kind == "GNNConfig" and getattr(cfg, "type_gnn", None) == "SWEGNN":
+        return graph.replace(ell_cache=_gnn_cache(params, cfg, graph))
+    return graph

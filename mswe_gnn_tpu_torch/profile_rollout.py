@@ -2,7 +2,7 @@
 Trainer epoch) goes, on one NVIDIA GPU.
 
     python3 -m mswe_gnn_tpu_torch.profile_rollout [--train | --trainer] [--batch B]
-                                                  [--trace PATH]
+                                                  [--model {MSGNN,GNN}] [--trace PATH]
 
 Builds the bench problem (bench_problem.py: 152x152 grid, 3 scales, F=64,
 K=5, bf16, 47 steps), runs one rollout to warm up, then traces one rollout
@@ -11,7 +11,10 @@ With ``--train`` it does the same for one train step of bench.py's
 ``bench_training`` instead (band plan attached, 6-step pushforward, remat,
 batch 1), and ``steps`` counts the pushforward's model steps. ``--batch B``
 runs either on the concat union of B copies of the bench graph (no band
-plan). With ``--trainer`` it traces one epoch of ``Trainer.fit`` at batch B
+plan). ``--model GNN`` runs either on the single-scale GNN bench problem
+instead: the same grid's single-scale graph (23,168 rows) and
+configs/pareto_gnn.yaml's model (F=64, K=10, 2 layers, float32), its train
+step with the band plan of its one scale and ``multiscale`` False. With ``--trainer`` it traces one epoch of ``Trainer.fit`` at batch B
 instead, at demo_small's width (configs/demo_small.yaml: F=64, K=4,
 mlp_layers=3, 3 scales) on a synthetic set of 64x64 grids (24 training
 samples, 2-step pushforward, no validation), after two warm-up epochs;
@@ -41,7 +44,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sample,
-                                              build_bench_train_step)
+                                              build_bench_train_step, build_pareto_gnn_model)
 from mswe_gnn_tpu_torch.data.dataset import (fit_dataset_scalers, make_spec, process_record,
                                              to_temporal_samples, union_spec)
 from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
@@ -74,14 +77,19 @@ def union_us(intervals) -> float:
     return total
 
 
-def bench_run(train, batch, device):
+def bench_run(train, batch, device, model="MSGNN"):
     """-> (a call of one bench rollout, or with ``train`` one bench train
-    step, on the union of ``batch`` bench graphs; its model steps)."""
-    sample, _ = build_bench_sample(band=train)
-    cfg, params, apply_fn = build_bench_model(sample, device=device)
+    step, on the union of ``batch`` bench graphs; its model steps).
+    ``model="GNN"``: the single-scale graph and pareto_gnn's model."""
+    if model == "GNN":
+        sample, _ = build_bench_sample(band=train, num_scales=1)
+        cfg, params, apply_fn = build_pareto_gnn_model(sample, device=device)
+    else:
+        sample, _ = build_bench_sample(band=train)
+        cfg, params, apply_fn = build_bench_model(sample, device=device)
     if train:
         run = build_bench_train_step(sample, cfg, params, apply_fn, device=device,
-                                     batch=batch)
+                                     batch=batch, multiscale=model == "MSGNN")
         return run, run.rollout_steps
     graph = concat_graphs([sample] * batch).to(device)
     steps = sample.y.shape[-1]
@@ -126,7 +134,12 @@ def main(argv=None) -> None:
                         help="profile one Trainer epoch instead of the rollout")
     parser.add_argument("--batch", type=int, default=1,
                         help="graphs in the concat union (default 1)")
+    parser.add_argument("--model", choices=("MSGNN", "GNN"), default="MSGNN",
+                        help="the bench MSGNN (default) or the single-scale GNN of "
+                             "configs/pareto_gnn.yaml on the single-scale graph")
     args = parser.parse_args(argv)
+    if args.trainer and args.model != "MSGNN":
+        parser.error("--trainer profiles demo_small's MSGNN only")
     if not torch.cuda.is_available():
         sys.exit("profile_rollout: no CUDA device")
     device = torch.device("cuda")
@@ -142,7 +155,7 @@ def main(argv=None) -> None:
             extra["untraced_wall_ms"].append((time.perf_counter() - t0) * 1e3)
         torch.cuda.reset_peak_memory_stats()
     else:
-        run, steps = bench_run(args.train, args.batch, device)
+        run, steps = bench_run(args.train, args.batch, device, args.model)
         run()
     torch.cuda.synchronize()
 
@@ -165,7 +178,7 @@ def main(argv=None) -> None:
     result = {
         "device": torch.cuda.get_device_name(0),
         "run": "trainer_epoch" if args.trainer else "train_step" if args.train else "rollout",
-        "steps": steps, "batch": args.batch,
+        "model": args.model, "steps": steps, "batch": args.batch,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": len(events) / steps,

@@ -40,7 +40,8 @@ def test_port_imports_nothing_of_jax():
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     assert {f"mswe_gnn_tpu_torch/{m}.py" for m in (
         "native", "config", "main", "data/triangulate", "data/npz_store", "data/synthetic",
-        "data/meshing", "utils/metrics", "utils/analysis", "utils/logging")} <= scanned
+        "data/meshing", "utils/metrics", "utils/analysis", "utils/logging", "ops/segment",
+        "models/convs", "models/gnn")} <= scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
            for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -72,6 +73,33 @@ def test_build_model_without_device_raises_without_cuda(no_cuda):
         build_model({"hid_features": 8}, **MODEL_KW)
     cfg, params, _ = build_model({"hid_features": 8}, device="cpu", **MODEL_KW)
     assert params["node_decoder"]["layers"][0]["w"].device.type == "cpu"
+
+
+def test_gnn_entry_points_without_device_raise_without_cuda(no_cuda):
+    """The single-scale GNN of every type and MSGNN with learned pooling:
+    ``build_model`` and ``rollout`` raise without a device and run with
+    ``device='cpu'``; ``prepare_graph`` on a GNN config builds its cache."""
+    from mswe_gnn_tpu_torch.models import prepare_graph
+
+    _, g = sample_pair(previous_t=2, rollout_steps=2, index=0, num_scales=1)
+    kw = dict(MODEL_KW, num_node_features=g.x_static.shape[1] + g.x_dynamic.shape[1],
+              num_edge_features=g.edge_attr.shape[1], num_scales=1)
+    for model in [{"model_type": "GNN", "type_GNN": k, "hid_features": 8, "K": 2}
+                  for k in ("SWEGNN", "GNN_L", "GNN_A", "GAT")]:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(model, **kw)
+        cfg, params, apply_fn = build_model(model, device="cpu", **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rollout(apply_fn, params, cfg, g, steps=1)
+        assert rollout(apply_fn, params, cfg, g, steps=1, device="cpu").shape == (
+            g.num_nodes, 2, 1)
+        prepared = prepare_graph(params, cfg, g)
+        assert (prepared.ell_cache is not None) == (model["type_GNN"] == "SWEGNN")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model({"hid_features": 8, "learned_pooling": True}, **MODEL_KW)
+    _, params, _ = build_model({"hid_features": 8, "learned_pooling": True}, device="cpu",
+                               **MODEL_KW)
+    assert "pooling_mlp" in params
 
 
 def test_main_without_device_raises_without_cuda(no_cuda, tmp_path):

@@ -341,3 +341,82 @@ def test_union_rollout_on_the_card(cuda, small_problem):
     for i in range(4):
         rows = cs.graph_rows(g.spec, 4, i, "cpu")
         torch.testing.assert_close(got.cpu()[rows], want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------- the single-scale GNN
+
+@pytest.fixture
+def single_scale():
+    """A 16x16 single-scale sample (previous_t 2)."""
+    records = generate_dataset(1, seed=0, nx=16, ny=16, num_scales=1, total_hours=12,
+                               substeps=8)
+    rec = records[0]
+    scalers = port_dataset.fit_dataset_scalers(records, {"area_scaler": "standard"})
+    spec = port_dataset.make_spec(rec.mesh, len(rec.mesh.ghosts.ghost_nodes), 8)
+    return port_dataset.to_temporal_samples(port_dataset.process_record(rec, scalers), spec,
+                                            previous_t=2, rollout_steps=3)[1]
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+def test_segment_ops_on_the_card(cuda, op):
+    """The segment reductions on the card against the CPU: exact for max,
+    1e-6 for the sums (``index_add`` on CUDA adds with atomics)."""
+    from mswe_gnn_tpu_torch.ops import segment
+
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, 300, (4000,), generator=g)
+    ids[ids == 7] = 8                                     # an empty segment
+    data = torch.randn(4000, 64, generator=g)
+    weights = (torch.rand(4000, generator=g) < 0.8).float()
+    fn = {"sum": lambda d, i, w: segment.segment_sum(d, i, 300),
+          "mean": lambda d, i, w: segment.segment_mean(d, i, 300, weights=w),
+          "max": lambda d, i, w: segment.segment_max(d, i, 300)}[op]
+    got = fn(data.to(cuda), ids.to(cuda), weights.to(cuda)).cpu()
+    want = fn(data, ids, weights)
+    assert torch.all(got[7] == 0)
+    torch.testing.assert_close(got, want, rtol=0 if op == "max" else 1e-6,
+                               atol=0 if op == "max" else 1e-6)
+
+
+@pytest.mark.parametrize("type_gnn", ["SWEGNN", "GNN_L", "GNN_A", "GAT"])
+def test_gnn_rollout_on_the_card_matches_the_cpu(cuda, single_scale, type_gnn):
+    """A 3-step rollout of the single-scale GNN of each type on the card
+    against the CPU (the model's limits); the SWE-GNN's hops go through the
+    ELL kernel (n_gnn_layers x K a step), the convs launch none."""
+    g = single_scale
+    cfg, params, apply_fn = build_model(
+        {"model_type": "GNN", "type_GNN": type_gnn, "hid_features": 64, "K": 3,
+         "n_GNN_layers": 2, "mlp_layers": 3, "learned_residuals": True, "with_WL": True,
+         "gnn_activation": "tanh"},
+        num_node_features=g.x_static.shape[1] + g.x_dynamic.shape[1],
+        num_edge_features=g.edge_attr.shape[1], num_scales=1, previous_t=2, device="cpu")
+    want = rollout(apply_fn, params, cfg, g, steps=3, device="cpu")
+    cs.reset_all_launches()
+    got = rollout(apply_fn, tree_to(params, cuda), cfg, g, steps=3)
+    assert got.device.type == "cuda"
+    assert cs.read_launches() == cs.rollout_launches(cfg, g.spec, 3)
+    assert (sum(cs.read_launches().values()) == 18) == (type_gnn == "SWEGNN")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_learned_pooling_on_the_card_matches_the_cpu(cuda, small_problem):
+    """MSGNN with learned pooling: a 3-step rollout on the card against the
+    CPU (the model's limits), and a train step's loss and gradients with
+    the pooling MLP's gradient non-zero."""
+    g, _, _, _ = small_problem
+    cfg, params, apply_fn = build_model(
+        {"hid_features": 32, "K": 3, "mlp_layers": 3, "learned_residuals": True,
+         "with_WL": True, "learned_pooling": True},
+        num_node_features=g.x_static.shape[1] + g.x_dynamic.shape[1],
+        num_edge_features=g.edge_attr.shape[1], num_scales=3, previous_t=2, device="cpu")
+    want = rollout(apply_fn, params, cfg, g, steps=3, device="cpu")
+    got = rollout(apply_fn, tree_to(params, cuda), cfg, g, steps=3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    opts = port_train.TrainerOptions(batch_size=1, velocity_scaler=7.0)
+    loss_c, grads_c = port_train.loss_and_grads(apply_fn, params, cfg, g, 2, opts, True)
+    loss_g, grads_g = port_train.loss_and_grads(apply_fn, tree_to(params, cuda), cfg,
+                                                g.to(cuda), 2, opts, True)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-6)
+    assert all(bool(leaf.ne(0).any()) for leaf in tree_leaves(grads_c["pooling_mlp"]["layers"]))

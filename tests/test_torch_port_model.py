@@ -191,16 +191,30 @@ def test_build_model_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
+    """What the port still leaves out raises: storm forcing, lstsq slopes and
+    vmap-stacked batches (ROADMAP Queue 1). The single-scale GNN, learned
+    pooling and the edge-major SWEGNN path are ported
+    (tests/test_torch_port_gnn.py); a model or layer type that neither
+    package knows raises ValueError."""
+    from mswe_gnn_tpu_torch.data import dataset as port_dataset
+    from mswe_gnn_tpu_torch.data.synthetic import generate_dataset as port_generate
+    from mswe_gnn_tpu_torch.graph import stack_graphs
+    from mswe_gnn_tpu_torch.training import train as port_train
+
     kw = dict(num_node_features=6, num_edge_features=1, num_scales=3, previous_t=2)
-    with pytest.raises(NotImplementedError):
-        build_model({"model_type": "GNN"}, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        build_model({"learned_pooling": True}, device="cpu", **kw)
-    cfg = port_swegnn.SWEGNNConfig(static_node_features=4, dynamic_node_features=4,
-                                   edge_features=0)
-    x = torch.zeros(3, 4)
-    idx = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        port_swegnn.apply_swegnn_block({}, cfg, x, x, x, x, idx, idx)
-    with pytest.raises(NotImplementedError):
-        port_swegnn.apply_swegnn({}, cfg, x, x, idx, idx)
+    with pytest.raises(NotImplementedError, match="storm"):
+        port_generate(1, nx=8, ny=8, storm=True)
+    with pytest.raises(NotImplementedError, match="lstsq"):
+        port_dataset._node_slopes(None, "lstsq")
+    _, g = sample_pair(previous_t=2, rollout_steps=2, index=0)
+    cfg, params, apply_fn = build_model({"hid_features": 8}, device="cpu",
+                                        **dict(kw, num_node_features=g.x_static.shape[1]
+                                               + g.x_dynamic.shape[1],
+                                               num_edge_features=g.edge_attr.shape[1]))
+    with pytest.raises(NotImplementedError, match="vmap"):
+        port_train.pushforward_loss(apply_fn, params, cfg, stack_graphs([g, g]), 1,
+                                    port_train.TrainerOptions(), True)
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model({"model_type": "UNet"}, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown type_gnn"):
+        build_model({"model_type": "GNN", "type_GNN": "GCN"}, device="cpu", **kw)

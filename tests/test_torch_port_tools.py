@@ -112,6 +112,31 @@ def test_launch_counts_by_shape(bench32):
     assert rollout[("hop", n2, n2)] == 235 and rollout[("hop", n0, n1)] == 47
 
 
+def test_gnn_launch_counts_by_shape():
+    """The single-scale SWE-GNN (pareto_gnn's model: 2 layers of K=10) runs
+    n_gnn_layers x K hops a step over its one block of rows and no un-pool
+    hop: 940 ELL launches a 47-step rollout, 240 band forwards and 120 band
+    backwards a 6-step train step with remat where the scale has a band
+    plan; a baseline runs none."""
+    from mswe_gnn_tpu_torch.bench_problem import build_pareto_gnn_model
+
+    sample, _ = build_bench_sample(16, 16, 4, num_scales=1)
+    banded = attach_band_plan(sample, min_nodes=128)
+    n = sample.spec.num_nodes
+    cfg, _, _ = build_pareto_gnn_model(sample, device="cpu")
+    assert cs.processor_layers(cfg) == [(10, 0), (10, 0)]
+    assert cs.hops_per_step(cfg, sample.spec) == Counter({("hop", n, n): 20})
+    assert cs.hops_per_step(cfg, banded.spec, banded.band_meta) == Counter(
+        {("band_hop", n, n): 20})
+    assert cs.rollout_launches(cfg, sample.spec, 47) == Counter({("hop", n, n): 940})
+    step = cs.train_launches(cfg, banded.spec, banded.band_meta, 6, True)
+    assert cs.by_kernel(step) == {"band_hop": 240, "band_hop_bwd": 120, "hop": 0, "hop_bwd": 0}
+    union = cs.train_launches(cfg, sample.spec.tile(8), None, 3, False)
+    assert union == Counter({("hop", 8 * n, 8 * n): 60, ("hop_bwd", 8 * n, 8 * n): 60})
+    gat, _, _ = build_pareto_gnn_model(sample, device="cpu", type_GNN="GAT")
+    assert cs.processor_layers(gat) == [] and cs.hops_per_step(gat, sample.spec) == Counter()
+
+
 def test_read_launches_holds_shapes_against_totals(monkeypatch):
     """The smoke reads the wrappers' counts by shape, checks that they sum to
     the totals by kernel, and fails on any count the config does not give."""

@@ -24,11 +24,13 @@ def temporal_samples(ds, records, previous_t=2, rollout_steps=4):
                                         rollout_steps=rollout_steps)
 
 
-def sample_pair(n_records=2, previous_t=2, rollout_steps=4, index=1):
-    """(JAX FloodGraph, port FloodGraph) of the same temporal sample."""
-    _, jg = temporal_samples(jax_dataset, jax_generate(n_records, **GEN_KW),
+def sample_pair(n_records=2, previous_t=2, rollout_steps=4, index=1, num_scales=3):
+    """(JAX FloodGraph, port FloodGraph) of the same temporal sample, on the
+    16x16 corpus in ``num_scales`` scales."""
+    gen_kw = dict(GEN_KW, num_scales=num_scales)
+    _, jg = temporal_samples(jax_dataset, jax_generate(n_records, **gen_kw),
                              previous_t, rollout_steps)
-    _, tg = temporal_samples(port_dataset, port_generate(n_records, **GEN_KW),
+    _, tg = temporal_samples(port_dataset, port_generate(n_records, **gen_kw),
                              previous_t, rollout_steps)
     return jg[index], tg[index]
 
@@ -38,16 +40,17 @@ def numpy_tree(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def jax_bench_sample(nx, ny, T):
+def jax_bench_sample(nx, ny, T, num_scales=3):
     """The sample of bench.py:75-120 (build_bench_problem) built by the JAX
     package at a small grid, without its model: padded to multiples of 128
-    rows, as the band planner needs."""
+    rows, as the band planner needs (``num_scales`` 1: the single-scale
+    dual graph)."""
     from mswe_gnn_tpu.data.simulate import random_dem_fn
     from mswe_gnn_tpu.data.synthetic import make_multiscale_grid
 
     rng = np.random.default_rng(0)
     dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
-    mesh = make_multiscale_grid(nx, ny, 100.0, 3, dem_fn, n_bc=4)
+    mesh = make_multiscale_grid(nx, ny, 100.0, num_scales, dem_fn, n_bc=4)
     n = mesh.num_nodes
     wd = np.abs(rng.normal(0.4, 0.3, (n, T))).astype(np.float32)
     vx = rng.normal(0, 0.3, (n, T)).astype(np.float32)
@@ -62,12 +65,14 @@ def jax_bench_sample(nx, ny, T):
     return jax_dataset.to_temporal_samples(proc, spec, previous_t=3, rollout_steps=-1)[0]
 
 
-def bench_sample_pair(nx=16, ny=16, T=6):
+def bench_sample_pair(nx=16, ny=16, T=6, num_scales=3):
     """(JAX FloodGraph, port FloodGraph) of the bench problem's sample at an
-    ``nx`` x ``ny`` grid with ``T`` frames, both without a band plan."""
+    ``nx`` x ``ny`` grid with ``T`` frames in ``num_scales`` scales, both
+    without a band plan."""
     from mswe_gnn_tpu_torch.bench_problem import build_bench_sample
 
-    return jax_bench_sample(nx, ny, T), build_bench_sample(nx, ny, T)[0]
+    return (jax_bench_sample(nx, ny, T, num_scales),
+            build_bench_sample(nx, ny, T, num_scales=num_scales)[0])
 
 
 def without_subnormal_targets(jg, pg):
