@@ -88,12 +88,32 @@ Phases, each printing its own lines:
    training summary within 1e-5), every launched shape held as in phase 10;
    (e) the bench MSGNN with ``learned_pooling`` on the 3-scale bench graph,
    one step held against the plain hops within phase 4's limit.
+12. data -- the data layer: (a) the bench MSGNN of phase 4 on the bench
+   graph with storm forcing (``build_bench_sample(storm=True)``: wind
+   stress WX, WY and a pressure low P from ``add_storm_forcing``, three
+   columns appended to the static features at every step), its 47-step
+   rollout as phase 4 (1,269 ELL launches, step 0 against the plain hop,
+   timed); (b) the train step of phase 5 on that graph with its band plan
+   (240 band fwd + 84 ELL fwd + 120 band bwd + 42 ELL bwd, gradients at
+   phase 5's limits, timed); (c) the CLI's ``train`` and ``eval`` of
+   ``configs/accuracy.yaml``'s model at full width (F=64, K=5, float32)
+   with ``synthetic_data.storm_forcing`` on, only the corpus and the epochs
+   cut (each cut printed), the eval summary the training one within 1e-5,
+   every launched shape held as in phase 10; (d) ``train`` and ``eval`` at
+   demo_small's width on a ``dataset_parameters.map_folder`` of map files
+   that the smoke writes as classic NetCDF-3 (``scipy.io.netcdf_file``:
+   the card has no h5py) with an ``overview.csv``, lstsq slopes as node
+   features, 3 scales (the coarse ones re-meshed by the mesh core), the
+   summary's solver label ``dhydro`` with a finite speed-up, every launched
+   shape held; (e) ``train`` on a ``dataset_folder`` of reference pickles
+   written by ``tests/pyg_fixture.py``, its split sizes held.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
 serving at batch 4 and 20, train step at batch 4, the CLI's train, eval and
-trained-weights eval, and phase 11's rollout, train step, CLI train and eval
-and learned-pooling step), each path counted from 0 just before it runs;
+trained-weights eval, phase 11's rollout, train step, CLI train and eval
+and learned-pooling step, and phase 12's forced rollout and train step and
+its CLI runs), each path counted from 0 just before it runs;
 ``launches_by_path`` holds each path's own count, the figure to read for
 one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -768,11 +788,13 @@ def timed_rollouts(apply_fn, params, cfg, graph, steps, device, reps=3):
 
 
 def first_step(graph):
-    """The graph with step 0's boundary condition injected, as the rollout
+    """The graph with step 0's boundary condition injected and step 0's
+    forcing columns appended (where the graph has forcing), as the rollout
     feeds its first model step."""
-    from mswe_gnn_tpu_torch.training.rollout import bc_window, inject_bc
+    from mswe_gnn_tpu_torch.training.rollout import bc_window, inject_bc, with_step_forcing
 
-    return graph.replace(x_dynamic=inject_bc(graph.x_dynamic, graph, bc_window(graph, 0)))
+    return with_step_forcing(graph, 0).replace(
+        x_dynamic=inject_bc(graph.x_dynamic, graph, bc_window(graph, 0)))
 
 
 def check_rollout(what, preds, graph, steps) -> None:
@@ -935,41 +957,82 @@ def flat(tree):
     return torch.cat([t.double().reshape(-1) for t in tree_leaves(tree)])
 
 
+def leaf_names(tree, prefix="") -> list:
+    """The path of each tensor of a tree, in ``tree_leaves`` order."""
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}.{k}".lstrip("."))]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return []
+
+
 def compare_grads(loss_k, grads_k, loss_p, grads_p) -> dict:
     """The loss and gradients through the kernels against those through the
-    plain hops."""
+    plain hops; ``worst`` names the three leaves of largest max|diff| /
+    max|leaf|, each with its max|diff| and max|leaf|."""
     from mswe_gnn_tpu_torch import tree_leaves
     a, b = flat(grads_k), flat(grads_p)
     pairs = list(zip(tree_leaves(grads_k), tree_leaves(grads_p)))
-    diffs = [((x - y).abs().max(), y.abs().max()) for x, y in pairs]
+    diffs = [(float((x - y).abs().max()), float(y.abs().max())) for x, y in pairs]
+    ratios = [d / max(m, 1e-30) for d, m in diffs]
+    order = sorted(range(len(diffs)), key=ratios.__getitem__, reverse=True)[:3]
+    names = leaf_names(grads_p)
     return {"loss_rel": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
             "cos": float(a @ b / (a.norm() * b.norm())),
             "rel": float((a - b).norm() / b.norm()),
-            "worst_leaf": max(float(d / m.clamp_min(1e-30)) for d, m in diffs),
-            "leaves_within": all(bool(d <= 1e-4 * m + 1e-12) for d, m in diffs)}
+            "worst_leaf": ratios[order[0]],
+            "worst": [(names[i], ratios[i], *diffs[i]) for i in order],
+            "leaves_within": all(d <= 1e-4 * m + 1e-12 for d, m in diffs)}
 
 
-def hold_grads(phase, args, through_kernels):
+@contextlib.contextmanager
+def deterministic(phase):
+    """PyTorch's deterministic algorithms while the block runs, so that a
+    gradient comparison reads the same in every run: autograd of the plain
+    hops' ``index_select`` then adds its ``index_add_`` terms in a fixed
+    order, not by atomics in the compute dtype (the kernels use none). Ops
+    without a deterministic version warn; their messages are logged."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    if ops:
+        log(f"[{phase}] ops without a deterministic version in the gradient comparison: {ops}")
+
+
+def hold_grads(phase, args):
     """The loss and gradients of ``loss_and_grads(*args)`` through the
-    kernels (``through_kernels``, in the config's bf16) against those
-    through the plain hops, in bf16 and in float32 -> ``(bf16, f32, (loss,
-    grads) through the kernels in float32)``; raises past the limits. A
-    float32 config is held once, in float32 (``bf16`` is None)."""
+    kernels (in the config's dtype, bf16 as trained) against those through
+    the plain hops, in bf16 and in float32, every pass under
+    ``deterministic`` -> ``(bf16, f32, (loss, grads) through the kernels,
+    the same in float32)``; raises past the limits. A float32 config is
+    held once, in float32 (``bf16`` is None)."""
     from mswe_gnn_tpu_torch.training.train import loss_and_grads
 
     apply_fn, params, cfg, graph, rollout_steps, opts, multiscale = args
-    with plain_hops():
-        loss_p, grads_p = loss_and_grads(*args)
-    if cfg.compute_dtype == "float32":
-        # a float32 model (pareto_gnn's): its pass is the float32 one
-        bf16, kernels32, loss_p32, grads_p32 = None, through_kernels, loss_p, grads_p
-    else:
-        bf16 = compare_grads(*through_kernels, loss_p, grads_p)
-        args32 = (apply_fn, params, dataclasses.replace(cfg, compute_dtype="float32"),
-                  graph, rollout_steps, opts, multiscale)
-        kernels32 = loss_and_grads(*args32)
+    with deterministic(phase):
+        kernels = loss_and_grads(*args)
         with plain_hops():
-            loss_p32, grads_p32 = loss_and_grads(*args32)
+            loss_p, grads_p = loss_and_grads(*args)
+        if cfg.compute_dtype == "float32":
+            # a float32 model (pareto_gnn's): its pass is the float32 one
+            bf16, kernels32, loss_p32, grads_p32 = None, kernels, loss_p, grads_p
+        else:
+            bf16 = compare_grads(*kernels, loss_p, grads_p)
+            args32 = (apply_fn, params, dataclasses.replace(cfg, compute_dtype="float32"),
+                      graph, rollout_steps, opts, multiscale)
+            kernels32 = loss_and_grads(*args32)
+            with plain_hops():
+                loss_p32, grads_p32 = loss_and_grads(*args32)
     f32 = compare_grads(*kernels32, loss_p32, grads_p32)
     for name, r, limits in (("bf16", bf16, "loss 1e-5, cosine >= 0.99999, L2 <= 3e-3, "
                                            "worst leaf <= 0.25"),
@@ -979,7 +1042,9 @@ def hold_grads(phase, args, through_kernels):
             log(f"[{phase}] kernels vs plain hops, {name}: loss rel diff "
                 f"{r['loss_rel']:.3e}; gradient cosine {r['cos']:.8f}, relative L2 diff "
                 f"{r['rel']:.3e}, worst leaf max|diff|/max|leaf| {r['worst_leaf']:.3e} "
-                f"(limits: {limits})")
+                f"(limits: {limits}); worst leaves "
+                + "; ".join(f"{n} {q:.3e} (max|diff| {d:.3e}, max|leaf| {m:.3e})"
+                            for n, q, d, m in r["worst"]))
     if bf16 is not None and not (bf16["loss_rel"] <= 1e-5 and bf16["cos"] >= 0.99999
                                  and bf16["rel"] <= 3e-3 and bf16["worst_leaf"] <= 0.25):
         raise AssertionError(f"[{phase}] bf16 train-step gradients through the kernels "
@@ -987,7 +1052,7 @@ def hold_grads(phase, args, through_kernels):
     if not (f32["loss_rel"] <= 1e-6 and f32["leaves_within"]):
         raise AssertionError(f"[{phase}] float32 train-step gradients through the kernels "
                              "disagree with the plain hops")
-    return bf16, f32, kernels32
+    return bf16, f32, kernels, kernels32
 
 
 def check_first_grads(phase, loss, grads) -> None:
@@ -1043,7 +1108,7 @@ def phase_train(banded, cfg, params, apply_fn, phase="train") -> dict:
     """The bench train step on ``banded`` (phase 5; phase 11 (b) on the
     single-scale graph with ``phase="gnn"``, ``multiscale`` False)."""
     from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
-    from mswe_gnn_tpu_torch.training.train import eval_step, loss_and_grads
+    from mswe_gnn_tpu_torch.training.train import eval_step
 
     device = torch.device("cuda")
     multiscale = is_msgnn(cfg)
@@ -1056,18 +1121,18 @@ def phase_train(banded, cfg, params, apply_fn, phase="train") -> dict:
     # the gradients of the first step, through the kernels and through the
     # plain hops (autograd of the plain versions)
     args = (apply_fn, step.params, cfg, step.graph, step.rollout_steps, step.opts, multiscale)
-    loss_k, grads_k = loss_and_grads(*args)
-    check_first_grads(phase, loss_k, grads_k)
 
     # bf16, as trained: the kernels sum a state gradient in float32 and round
     # once, autograd of the plain hops rounds at other points, so the limits
     # sit a few times above the readings of earlier runs (L2 4.7e-4, worst
-    # leaf 8e-2). float32: every hop agrees with its plain version to the
-    # bit and only the order of the gradient sums differs, so every leaf is
-    # held to 1e-4 of its largest value (the CPU parity tests' limit
-    # against JAX); this pass shows that the bf16 gaps are rounding, not a
-    # fault in the autograd Functions.
-    bf16, f32, _ = hold_grads(phase, args, (loss_k, grads_k))
+    # leaf 8e-2; the worst leaf is a PReLU slope whose gradient is near 0).
+    # float32: every hop agrees with its plain version to the bit and only
+    # the order of the gradient sums differs, so every leaf is held to 1e-4
+    # of its largest value (the CPU parity tests' limit against JAX); this
+    # pass shows that the bf16 gaps are rounding, not a fault in the
+    # autograd Functions.
+    bf16, f32, (loss_k, grads_k), _ = hold_grads(phase, args)
+    check_first_grads(phase, loss_k, grads_k)
 
     launches, step_ms, losses, peak = timed_train_steps(phase, step, expected)
 
@@ -1178,9 +1243,8 @@ def phase_batched_train(banded, sample, cfg, params, apply_fn) -> dict:
         f"config gives a step: {by_kernel(expected)}")
 
     args = (apply_fn, step.params, cfg, union, step.rollout_steps, step.opts, True)
-    loss_k, grads_k = loss_and_grads(*args)
+    bf16, f32, (loss_k, grads_k), (loss32, grads32) = hold_grads("batched train", args)
     check_first_grads("batched train", loss_k, grads_k)
-    bf16, f32, (loss32, grads32) = hold_grads("batched train", args, (loss_k, grads_k))
 
     # in float32 the union of b identical copies has the loss and the
     # gradients of one copy (concat-then-mean)
@@ -1317,8 +1381,12 @@ CLI_CONFIG = "configs/accuracy_tri.yaml"
 CLI_CUTS = {("synthetic_data", "n_sims"): 12, ("trainer_options", "max_epochs"): 2,
             ("trainer_options", "curriculum_epoch"): 1}
 TRAINED_WEIGHTS = "results_repo/checkpoints/accuracy_tri_r5_torch/best"
-TIMING_KEYS = ("mean_prediction_time_s", "speed_up_vs_synthetic_solver_mean",
-               "speed_up_vs_synthetic_solver_std")
+
+
+def is_timing_key(key) -> bool:
+    """A summary key that times the run (prediction seconds, speed-ups
+    against the solver), which two runs of the same weights do not share."""
+    return key == "mean_prediction_time_s" or key.startswith("speed_up")
 
 
 def cli_run(args) -> collections.Counter:
@@ -1432,9 +1500,10 @@ def hold_train_union_grads(cfg, params, apply_fn, samples, opts, rollout_steps) 
     if union.num_graphs != opts.batch_size:
         raise AssertionError(f"[cli] a training union of {union.num_graphs}")
     args = (apply_fn, params, cfg, union, rollout_steps, opts, True)
-    kernels = loss_and_grads(*args)
-    with plain_hops():
-        plain = loss_and_grads(*args)
+    with deterministic("cli"):
+        kernels = loss_and_grads(*args)
+        with plain_hops():
+            plain = loss_and_grads(*args)
     r = compare_grads(*kernels, *plain)
     log(f"[cli] one train step on a union of {opts.batch_size} ({rollout_steps}-step "
         f"pushforward, remat {opts.remat}, float32), kernels vs plain hops: loss rel diff "
@@ -1521,7 +1590,7 @@ def cli_train_and_eval(phase, cfg, tmp, name) -> dict:
                            os.path.join(train_dir, "best"), "--out", os.path.join(tmp, "eval")])
     eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
     worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
-                if k not in TIMING_KEYS)
+                if not is_timing_key(k))
     if worst >= 1e-5:
         raise AssertionError(f"[{phase}] eval {eval_summary} != train {train_summary}")
     log(f"[{phase}] eval of the new best: the training summary within {worst:.2e}; "
@@ -1530,6 +1599,25 @@ def cli_train_and_eval(phase, cfg, tmp, name) -> dict:
     return {"cfg_path": cfg_path, "train_dir": train_dir, "train_counts": train_counts,
             "eval_counts": eval_counts, "history": history, "train_summary": train_summary,
             "eval_summary": eval_summary, "train_s": train_s}
+
+
+def hold_cli_shapes(checks, cfg, run, paths):
+    """Every ``(Nd, Ns)`` that the runs of ``paths`` (``(name, split,
+    counts)``, split 0 train, 2 test) launched, held against the plain
+    versions on the run's own unions, with the weights of its ``best`` ->
+    ``prepare_data(cfg)``."""
+    from mswe_gnn_tpu_torch import config as config_lib
+    from mswe_gnn_tpu_torch import main as cli
+
+    full = config_lib.with_defaults(cfg)
+    data = cli.prepare_data(full)
+    mcfg, params, _ = cli.build_experiment_model(full, data[2][0], device="cuda")
+    params = cli.restore_weights(os.path.join(run["train_dir"], "best"), params)
+    opts = cli.trainer_options(full)
+    most = max(opts.batch_size, int(full["trainer_options"].get("eval_batch_size", 1)))
+    for name, split, counts in paths:
+        hold_path_shapes(checks, name, mcfg, params, data[split], counts, most)
+    return data
 
 
 def phase_cli(smi, checks) -> dict:
@@ -1704,8 +1792,6 @@ def phase_gnn(smi, checks, bench_sample) -> dict:
     band plan; (c) the baselines; (d) the CLI on a cut pareto_gnn corpus,
     every launched shape held (into ``checks``); (e) MSGNN's learned pooling
     on ``bench_sample``."""
-    from mswe_gnn_tpu_torch import config as config_lib
-    from mswe_gnn_tpu_torch import main as cli
     from mswe_gnn_tpu_torch.bench_problem import build_bench_sample, build_pareto_gnn_model
     from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
 
@@ -1730,15 +1816,8 @@ def phase_gnn(smi, checks, bench_sample) -> dict:
     cut = cut_config("gnn", GNN_CLI_CONFIG, GNN_CLI_CUTS)
     with cli_workdir("smoke_gnn_cli_") as tmp:
         run = cli_train_and_eval("gnn", cut, tmp, "pareto_gnn_cut")
-        full = config_lib.with_defaults(cut)
-        train_s, _, test, _, _ = cli.prepare_data(full)
-        mcfg, mparams, _ = cli.build_experiment_model(full, test[0], device=device)
-        mparams = cli.restore_weights(os.path.join(run["train_dir"], "best"), mparams)
-        opts = cli.trainer_options(full)
-        most = max(opts.batch_size, int(full["trainer_options"].get("eval_batch_size", 1)))
-        for path, samples, counts in (("gnn_cli_train", train_s, run["train_counts"]),
-                                      ("gnn_cli_eval", test, run["eval_counts"])):
-            hold_path_shapes(checks, path, mcfg, mparams, samples, counts, most)
+        hold_cli_shapes(checks, cut, run, (("gnn_cli_train", 0, run["train_counts"]),
+                                           ("gnn_cli_eval", 2, run["eval_counts"])))
     log(f"[gnn] (d) took {time.perf_counter() - t_d:.1f} s")
 
     pooling = hold_learned_pooling(bench_sample)
@@ -1759,6 +1838,199 @@ def phase_gnn(smi, checks, bench_sample) -> dict:
             "cache": serving["cache"], "spec": sample.spec, "banded": banded,
             "baselines": baselines, "epoch_s": [r["epoch_time"] for r in run["history"]],
             "eval_s_per_sim": run["eval_summary"]["mean_prediction_time_s"]}
+
+
+# ---------------------------------------------------------------- phase 12
+DATA_CLI_CONFIG = "configs/accuracy.yaml"
+DATA_CLI_CUTS = {("synthetic_data", "n_sims"): 6, ("trainer_options", "max_epochs"): 2,
+                 ("trainer_options", "curriculum_epoch"): 1}
+DEMO_CONFIG = "configs/demo_small.yaml"
+DEMO_CUTS = {("trainer_options", "max_epochs"): 2, ("trainer_options", "curriculum_epoch"): 1}
+MAP_FILES, MAP_GRID, MAP_HOURS = 5, 24, 24        # map files of a 24x24 grid, 24 hourly frames
+PICKLE_SPLIT = (6, 2)                              # records in the train and test pickles
+
+
+def load_pyg_fixture():
+    """``tests/pyg_fixture.py`` of this checkout (numpy and torch only),
+    loaded from its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "pyg_fixture.py")
+    spec = importlib.util.spec_from_file_location("smoke_pyg_fixture", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_map_folder(folder) -> None:
+    """``MAP_FILES`` D-HYDRO-style map files of simulations on a
+    ``MAP_GRID`` x ``MAP_GRID`` grid (the port's solver), written as classic
+    NetCDF-3 with ``scipy.io.netcdf_file`` (the card has no h5py), with the
+    variables of ``write_grid_map_netcdf`` and an ``overview.csv`` of solver
+    seconds."""
+    import numpy as np
+
+    from mswe_gnn_tpu_torch.data.meshing import grid_mesh
+    from mswe_gnn_tpu_torch.data.netcdf import write_grid_map_netcdf
+    from mswe_gnn_tpu_torch.data.simulate import (random_dem_fn, random_hydrograph,
+                                                  run_diffusive_wave)
+
+    os.makedirs(folder, exist_ok=True)
+    n, dx = MAP_GRID, 100.0
+    rows = []
+    for i in range(MAP_FILES):
+        rng = np.random.default_rng(100 + i)
+        mesh = grid_mesh(n, n, dx, random_dem_fn(rng, extent=n * dx, relief=3.0))
+        hydro = random_hydrograph(rng, total_hours=MAP_HOURS, dt_minutes=60.0,
+                                  peak_discharge=150.0)
+        bc_faces = np.asarray([n // 2 - 1, n // 2], np.int64)
+        sim = run_diffusive_wave(mesh, bc_faces, hydro, dt_minutes=60.0, substeps=10)
+        write_grid_map_netcdf(os.path.join(folder, f"output_{i}_map.nc"), n, n, dx, sim.wd,
+                              sim.vx, sim.vy, bc_faces, dem=mesh.dem, classic=True)
+        rows.append(f"{i},{n * n},{MAP_HOURS:.1f},{300.0 + 25.0 * i}\n")
+    with open(os.path.join(folder, "overview.csv"), "w") as f:
+        f.write("seed,mesh_num_faces,simulation_time[h],computation_time[s]\n" + "".join(rows))
+
+
+def phase_data(smi, checks) -> dict:
+    """The data layer on the card: (a) the bench MSGNN's 47-step rollout on
+    the storm-forced bench graph; (b) its train step with the band plan;
+    (c) the CLI's train and eval of accuracy.yaml's model at full width on a
+    cut storm-forced corpus; (d) the CLI's train and eval on a folder of
+    NetCDF-3 map files at demo width, lstsq slopes as node features; (e) the
+    CLI's train on a folder of reference pickles. Every launched shape of
+    the CLI runs held (into ``checks``)."""
+    import yaml
+
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sample,
+                                                  build_bench_train_step)
+    from mswe_gnn_tpu_torch.data.synthetic import generate_dataset
+    from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    sample, mesh = build_bench_sample(storm=True)
+    banded = attach_band_plan(sample)
+    log(f"[data] storm-forced bench graph and its band plan built on the host in "
+        f"{time.perf_counter() - t0:.1f} s: forcing {list(sample.forcing.shape)} "
+        f"(WX, WY, P), static features {sample.x_static.shape[1]} + 3 a step")
+    cfg, params, apply_fn = build_bench_model(sample, device=device)
+
+    # (a) the forced rollout, (b) the forced train step
+    serving = phase_serving(sample, mesh, cfg, params, apply_fn, phase="data")
+    train = phase_train(banded, cfg, params, apply_fn, phase="data")
+    # control for (b)'s gradient check: the same weights on the graph with
+    # its forcing zeroed (the three extra encoder rows shift build_model's
+    # draws, so these weights are not phase 5's)
+    zeroed = build_bench_train_step(banded.replace(forcing=torch.zeros_like(banded.forcing)),
+                                    cfg, params, apply_fn, device=device)
+    args = (apply_fn, zeroed.params, cfg, zeroed.graph, zeroed.rollout_steps, zeroed.opts, True)
+    hold_grads("data, forcing zeroed", args)
+    del sample, banded, zeroed
+
+    # (c) the CLI on a storm-forced corpus at accuracy.yaml's full width
+    t_c = time.perf_counter()
+    cut = cut_config("data", DATA_CLI_CONFIG, DATA_CLI_CUTS)
+    log("[data] setting: synthetic_data.storm_forcing False -> True")
+    cut["synthetic_data"]["storm_forcing"] = True
+    with cli_workdir("smoke_data_cli_") as tmp:
+        storm = cli_train_and_eval("data", cut, tmp, "accuracy_storm_cut")
+        data = hold_cli_shapes(checks, cut, storm, (
+            ("data_cli_train", 0, storm["train_counts"]),
+            ("data_cli_eval", 2, storm["eval_counts"])))
+        if data[0][0].forcing is None or data[0][0].forcing.shape[1] != 3:
+            raise AssertionError("[data] the storm corpus's samples carry no forcing")
+    log(f"[data] (c) took {time.perf_counter() - t_c:.1f} s")
+
+    # (d) the CLI on a folder of NetCDF-3 map files, lstsq slopes
+    t_d = time.perf_counter()
+    demo = cut_config("data", DEMO_CONFIG, DEMO_CUTS)
+    with cli_workdir("smoke_data_map_") as tmp:
+        folder = os.path.join(tmp, "maps")
+        write_map_folder(folder)
+        demo_map = dict(demo, dataset_parameters={
+            "map_folder": folder, "temporal_res": 60, "val_prcnt": 0.25, "seed": 0,
+            "slope_method": "lstsq"},
+            selected_node_features={"slopes": True, "area": True, "DEM": True})
+        log(f"[data] (d) {MAP_FILES} NetCDF-3 map files of a {MAP_GRID}x{MAP_GRID} grid, "
+            f"{MAP_HOURS + 1} frames; dataset_parameters {demo_map['dataset_parameters']}; "
+            f"selected_node_features {demo_map['selected_node_features']}")
+        maps = cli_train_and_eval("data", demo_map, tmp, "demo_map")
+        hold_cli_shapes(checks, demo_map, maps, (
+            ("data_map_train", 0, maps["train_counts"]),
+            ("data_map_eval", 2, maps["eval_counts"])))
+    summary = maps["eval_summary"]
+    speed_up = summary.get("speed_up_vs_dhydro_mean")
+    if cli._solver_label(demo_map) != "dhydro" or speed_up is None \
+            or not math.isfinite(speed_up) or "speed_up_mean" not in summary:
+        raise AssertionError(f"[data] the map-folder summary has no finite speed-up against "
+                             f"dhydro: {summary}")
+    log(f"[data] (d) solver label dhydro; speed-up against dhydro {speed_up:.1f} "
+        f"(std {summary['speed_up_vs_dhydro_std']:.1f}); test_CSI_005 "
+        f"{summary['test_CSI_005']:.4f}; took {time.perf_counter() - t_d:.1f} s")
+
+    # (e) the CLI on a tree of reference pickles
+    t_e = time.perf_counter()
+    fixture = load_pyg_fixture()
+    n_train, n_test = PICKLE_SPLIT
+    with cli_workdir("smoke_data_pickle_") as tmp:
+        folder = os.path.join(tmp, "datasets")
+        records = generate_dataset(n_train + n_test, seed=50, nx=24, ny=24, num_scales=3,
+                                   total_hours=24, temporal_res=60, substeps=10)
+        for sub, part in (("train", records[:n_train]), ("test", records[n_train:])):
+            os.makedirs(os.path.join(folder, sub))
+            fixture.write_reference_dataset(
+                os.path.join(folder, sub, "multiscale_mesh_dataset.pkl"), part)
+        dp = {"dataset_folder": folder, "train_dataset_name": "multiscale_mesh_dataset",
+              "train_size": n_train, "val_prcnt": 0.25, "seed": 381, "temporal_res": 60}
+        split = [len(part) for part in cli._load_reference_split(dp)]
+        n_val = math.ceil(0.25 * n_train)
+        if split != [n_train - n_val, n_val, n_test]:
+            raise AssertionError(f"[data] reference-pickle split {split}")
+        pickle_cfg = dict(demo, dataset_parameters=dp)
+        cfg_path = os.path.join(tmp, "demo_pickles.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(pickle_cfg, f)
+        pickle_counts = cli_run(["train", "--config", cfg_path, "--out",
+                                 os.path.join(tmp, "train")])
+        history = read_json(os.path.join(tmp, "train", "best", "meta.json"))["history"]
+        pickle_summary = read_json(os.path.join(tmp, "train", "summary.json"))
+        hold_cli_shapes(checks, pickle_cfg, {"train_dir": os.path.join(tmp, "train")},
+                        (("data_pickle_train", 0, pickle_counts),))
+    if not (all(math.isfinite(r["train_loss"]) for r in history)
+            and all(math.isfinite(v) for v in pickle_summary.values())):
+        raise AssertionError(f"[data] reference-pickle run: history {history}, summary "
+                             f"{pickle_summary}")
+    if not by_kernel(pickle_counts)["hop"] or not by_kernel(pickle_counts)["hop_bwd"]:
+        raise AssertionError(f"[data] reference-pickle train launched {dict(pickle_counts)}")
+    log(f"[data] (e) reference pickles ({n_train} train, {n_test} test records, written by "
+        f"tests/pyg_fixture.py): split {split[0]} train / {split[1]} val / {split[2]} test "
+        f"records; epochs " + ", ".join(f"{r['epoch_time']:.2f}" for r in history)
+        + f" s; test_CSI_005 {pickle_summary['test_CSI_005']:.4f}; launched "
+        f"{by_kernel(pickle_counts)}; took {time.perf_counter() - t_e:.1f} s")
+
+    log(f"[data] summary: (a) {sum(serving['launches'].values())} ELL launches, rollout "
+        f"{serving['rollout_ms']:.1f} ms; (b) train step {train['step_ms']:.1f} ms, launched "
+        f"{by_kernel(train['launches'])}; (c) epochs "
+        + ", ".join(f"{r['epoch_time']:.2f}" for r in storm["history"])
+        + f" s, eval {storm['eval_summary']['mean_prediction_time_s']:.4f} s a simulation; "
+        f"(d) epochs " + ", ".join(f"{r['epoch_time']:.2f}" for r in maps["history"])
+        + f" s, eval {summary['mean_prediction_time_s']:.4f} s a simulation; {smi}; "
+        f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"data_serving": serving["launches"],
+                         "data_train_step": train["launches"],
+                         "data_cli_train": storm["train_counts"],
+                         "data_cli_eval": storm["eval_counts"],
+                         "data_map_train": maps["train_counts"],
+                         "data_map_eval": maps["eval_counts"],
+                         "data_pickle_train": pickle_counts},
+            "rollout_ms": serving["rollout_ms"], "train_step_ms": train["step_ms"],
+            "cli_epoch_s": [r["epoch_time"] for r in storm["history"]],
+            "map_epoch_s": [r["epoch_time"] for r in maps["history"]],
+            "pickle_epoch_s": [r["epoch_time"] for r in history],
+            "map_speed_up": speed_up}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1851,6 +2123,7 @@ def main() -> None:
     phase_trainer()
     cli = phase_cli(smi, checks)
     gnn = phase_gnn(smi, checks, sample)
+    data = phase_data(smi, checks)
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -1863,13 +2136,15 @@ def main() -> None:
     paths[f"train_step_b{TRAIN_BATCH}"] = batched_train["launches"]
     paths.update(cli["launches"])
     paths.update(gnn["launches"])
+    paths.update(data["launches"])
     # pareto_gnn's float32 hops on its own table and plan (the same shape as
     # the bench's scale 0, another dtype)
     cases += ell_timing_cases(gnn["cache"], gnn["spec"], set(), "gnn ", torch.float32)
     cases += band_timing_cases(gnn["banded"], "gnn plan", torch.float32)
     path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
-                                 "gnn_train_step", "gnn_cli_train", "gnn_cli_eval"),
-                                "float32")
+                                 "gnn_train_step", "gnn_cli_train", "gnn_cli_eval",
+                                 "data_cli_train", "data_cli_eval", "data_map_train",
+                                 "data_map_eval", "data_pickle_train"), "float32")
     timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
@@ -1900,6 +2175,11 @@ def main() -> None:
         k["gnn_cli_epoch_s"] = gnn["epoch_s"]
     for k in kernels[2:]:
         k["gnn_train_step_ms"] = gnn["train_step_ms"]
+    kernels[0]["data_rollout_ms"] = data["rollout_ms"]
+    for k in kernels[1:]:
+        k["data_train_step_ms"] = data["train_step_ms"]
+    for k in kernels[:2]:
+        k["data_cli_epoch_s"] = {key: data[f"{key}_epoch_s"] for key in ("cli", "map", "pickle")}
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,6 +14,11 @@ and ``build_pareto_gnn_model`` that model as ``configs/pareto_gnn.yaml``
 defines it (GNN / SWEGNN, F=64, K=10, 2 layers, mlp_layers 3, float32,
 251,604 parameters), through ``config.with_defaults`` as the CLI builds it.
 
+``build_bench_sample(storm=True)`` gives the record storm fields
+(``add_storm_forcing``: wind stress WX, WY and a pressure low P, three
+forcing columns that the model appends to the static features at every
+step), which ``build_bench_model`` counts among the node features.
+
 ``build_bench_sample(band=True)`` attaches the band plan with its defaults,
 as bench.py:121-131 does; ``BenchTrainStep`` is the train step of
 bench.py:304-341 (``bench_training``): a 6-step pushforward with remat,
@@ -26,6 +31,7 @@ as bench.py:311-314 does (the union carries no band plan); its
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -37,7 +43,7 @@ from mswe_gnn_tpu_torch.data.dataset import (
     to_temporal_samples,
 )
 from mswe_gnn_tpu_torch.data.simulate import random_dem_fn
-from mswe_gnn_tpu_torch.data.synthetic import make_multiscale_grid
+from mswe_gnn_tpu_torch.data.synthetic import add_storm_forcing, make_multiscale_grid
 from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
 from mswe_gnn_tpu_torch.models.registry import build_model
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
@@ -51,14 +57,17 @@ PARETO_GNN_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath
                                  "configs", "pareto_gnn.yaml")
 
 
-def build_bench_sample(nx=152, ny=152, T=48, band=False, num_scales=NUM_SCALES):
+def build_bench_sample(nx=152, ny=152, T=48, band=False, num_scales=NUM_SCALES,
+                       storm=False):
     """-> (full-rollout FloodGraph on the CPU, MultiscaleMesh). Smaller
     ``nx``/``ny``/``T`` give the same problem at a size the CPU tests take;
     ``band`` attaches the band plan (``attach_band_plan`` defaults);
-    ``num_scales=1`` gives the grid's single-scale dual graph."""
-    rng = np.random.default_rng(0)
-    dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
-    mesh = make_multiscale_grid(nx, ny, 100.0, num_scales, dem_fn, n_bc=4)
+    ``num_scales=1`` gives the grid's single-scale dual graph; ``storm``
+    adds the storm fields of ``add_storm_forcing`` (seed 0), scaled per
+    field (``forcing_scaler: standard``)."""
+    mesh, rng_state = _bench_mesh(nx, ny, num_scales)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = rng_state
     n = mesh.num_nodes
     wd = np.abs(rng.normal(0.4, 0.3, (n, T))).astype(np.float32)
     vx = rng.normal(0, 0.3, (n, T)).astype(np.float32)
@@ -67,8 +76,11 @@ def build_bench_sample(nx=152, ny=152, T=48, band=False, num_scales=NUM_SCALES):
     bc = np.abs(rng.normal(0.2, 0.1, (nbc, T))).astype(np.float32)
     rec = SimulationRecord(mesh=mesh, wd=wd, vx=vx, vy=vy, bc_per_length=bc,
                            temporal_res=120.0)
+    if storm:
+        rec = add_storm_forcing(rec, seed=0)
     scalers = fit_dataset_scalers([rec], {"area_scaler": "standard",
-                                          "edge_length_scaler": "standard"})
+                                          "edge_length_scaler": "standard",
+                                          "forcing_scaler": "standard"})
     proc = process_record(rec, scalers)
     spec = make_spec(mesh, nbc, pad_multiple=128)
     sample = to_temporal_samples(proc, spec, previous_t=PREVIOUS_T,
@@ -76,6 +88,17 @@ def build_bench_sample(nx=152, ny=152, T=48, band=False, num_scales=NUM_SCALES):
     if band:
         sample = attach_band_plan(sample)
     return sample, mesh
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_mesh(nx, ny, num_scales):
+    """The grid of ``build_bench_sample`` and the state of its seed-0
+    generator after the terrain's draws, built once a process (its
+    transfer edges take seconds at 152x152; the mesh is only read)."""
+    rng = np.random.default_rng(0)
+    dem_fn = random_dem_fn(rng, extent=nx * 100.0, relief=4.0)
+    mesh = make_multiscale_grid(nx, ny, 100.0, num_scales, dem_fn, n_bc=4)
+    return mesh, rng.bit_generator.state
 
 
 def build_bench_model(sample, device=None, **overrides):
@@ -87,7 +110,7 @@ def build_bench_model(sample, device=None, **overrides):
          "learned_residuals": True, "with_WL": True, "gnn_activation": "tanh",
          "mlp_activation": "prelu", "compute_dtype": "bfloat16",
          "flat_hop_threshold": 2048, **overrides},
-        num_node_features=sample.x_static.shape[1] + sample.x_dynamic.shape[1],
+        num_node_features=sample.num_node_features,
         num_edge_features=sample.edge_attr.shape[1],
         num_scales=sample.spec.num_scales, previous_t=sample.previous_t,
         device=device)
@@ -101,7 +124,7 @@ def build_pareto_gnn_model(sample, device=None, **overrides):
     cfg = config_lib.with_defaults(config_lib.read_config(PARETO_GNN_CONFIG))
     return build_model(
         {**cfg["models"], **overrides},
-        num_node_features=sample.x_static.shape[1] + sample.x_dynamic.shape[1],
+        num_node_features=sample.num_node_features,
         num_edge_features=sample.edge_attr.shape[1],
         num_scales=sample.spec.num_scales,
         previous_t=cfg["temporal_dataset_parameters"]["previous_t"], device=device)

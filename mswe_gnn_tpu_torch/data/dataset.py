@@ -232,13 +232,26 @@ def process_record(rec: SimulationRecord, scalers: Dict[str, object],
 
 
 def _node_slopes(mesh: MultiscaleMesh, method: str = "edge"):
-    """Per-node terrain slopes: the average of directed edge slopes
-    (``method='edge'``). The least-squares plane fit (``'lstsq'``) waits for
-    a port of mswe_gnn_tpu/data/interp.py.
+    """Per-node terrain slopes.
+
+    ``method='edge'`` (default): average of directed edge slopes
+    (reference utils/dataset.py:49-57 analog — cheap, edge-local).
+    ``method='lstsq'``: the reference's least-squares plane fit over a
+    radius+KNN neighborhood per scale (reference
+    database/graph_creation.py:1004-1031), via :func:`data.interp.get_slopes`.
     """
     if method == "lstsq":
-        raise NotImplementedError(
-            "slope_method='lstsq' needs data/interp.py, not ported yet")
+        from mswe_gnn_tpu_torch.data.interp import get_slopes
+
+        sxs, sys_ = [], []
+        for m in mesh.meshes:
+            # the radius scales with the mesh's own spacing, so that coarse
+            # scales keep a local neighborhood
+            spacing = float(np.median(m.face_distance)) if m.num_edges else 1.0
+            sx, sy = get_slopes(m.face_xy, m.dem, neighborhood_size=2.0 * spacing)
+            sxs.append(sx)
+            sys_.append(sy)
+        return np.concatenate(sxs), np.concatenate(sys_)
     if method != "edge":
         raise ValueError(f"unknown slope_method {method!r}")
     ei = mesh.edge_index

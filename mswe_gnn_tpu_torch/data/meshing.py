@@ -17,6 +17,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+# edge types (reference database/graph_creation.py edge-type convention)
+EDGE_NORMAL = 1
+EDGE_BC = 2
+EDGE_BOUNDARY = 3
+EDGE_GHOST = 4
+
 
 @dataclasses.dataclass
 class Mesh:

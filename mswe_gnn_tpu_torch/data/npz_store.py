@@ -23,7 +23,8 @@ _SERIES = ("wd", "vx", "vy", "bc_per_length")
 
 def record_arrays(rec: SimulationRecord, prefix: str = "") -> Dict[str, np.ndarray]:
     """Every array of a record under a stable key: its meshes, the
-    multiscale tables, the ghost cells and the series, in that order."""
+    multiscale tables, the ghost cells, the series and the forcing fields
+    where it has them, in that order."""
     out = {}
     for s, mesh in enumerate(rec.mesh.meshes):
         for name in _MESH_FIELDS:
@@ -35,6 +36,8 @@ def record_arrays(rec: SimulationRecord, prefix: str = "") -> Dict[str, np.ndarr
             out[f"{prefix}ghosts/{name}"] = getattr(rec.mesh.ghosts, name)
     for name in _SERIES:
         out[f"{prefix}{name}"] = getattr(rec, name)
+    if rec.forcing is not None:
+        out[f"{prefix}forcing"] = rec.forcing
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -43,9 +46,6 @@ def save_records(path: str, records: Sequence[SimulationRecord]) -> None:
     would add ``.npz`` to a name without it)."""
     arrays = {"num_records": np.asarray(len(records))}
     for i, rec in enumerate(records):
-        if rec.forcing is not None:
-            raise NotImplementedError("records with forcing fields are not stored by "
-                                      "the port (storm forcing is not ported)")
         p = f"r{i}/"
         arrays.update(record_arrays(rec, p))
         arrays[p + "num_scales"] = np.asarray(len(rec.mesh.meshes))
@@ -53,6 +53,8 @@ def save_records(path: str, records: Sequence[SimulationRecord]) -> None:
         arrays[p + "solver_seconds"] = np.asarray(rec.solver_seconds, np.float64)
         if rec.mesh.ghosts is not None:
             arrays[p + "ghosts/type_bc"] = np.asarray(rec.mesh.ghosts.type_bc)
+        if rec.forcing is not None:
+            arrays[p + "forcing_names"] = np.asarray(rec.forcing_names, dtype=str)
     with open(path, "wb") as f:
         np.savez(f, **arrays)
 
@@ -74,5 +76,8 @@ def load_records(path: str) -> List[SimulationRecord]:
             records.append(SimulationRecord(
                 mesh=mesh, **{name: data[p + name] for name in _SERIES},
                 temporal_res=float(data[p + "temporal_res"]),
-                solver_seconds=float(data[p + "solver_seconds"])))
+                solver_seconds=float(data[p + "solver_seconds"]),
+                forcing=data[p + "forcing"] if p + "forcing" in data else None,
+                forcing_names=(tuple(str(n) for n in data[p + "forcing_names"])
+                               if p + "forcing" in data else ())))
     return records

@@ -2,12 +2,13 @@
 
 Port of mswe_gnn_tpu/data/synthetic.py: regular multiscale grid meshes or
 random-polygon triangulated hierarchies (data/triangulate.py), random
-cosine-mode terrain, Weibull hydrographs and the diffusive-wave solver of
-data/simulate.py. Storm forcing waits for a port of the storm-field
-generator and raises.
+cosine-mode terrain, Weibull hydrographs, the diffusive-wave solver of
+data/simulate.py and translating storm fields (wind stress and a pressure
+low) that drive the solver and ride on the record as ``forcing``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List
 
@@ -27,6 +28,7 @@ from mswe_gnn_tpu_torch.data.triangulate import triangulated_hierarchy
 # v2: BC/forcing series are zero-order-hold aligned — column t holds the
 # forcing of the interval (t, t+1] (see generate_simulation_record).
 GENERATOR_VERSION = 2
+STORM_FIELDS = ("WX", "WY", "P")
 
 
 def make_multiscale_grid(nx: int, ny: int, dx: float, num_scales: int,
@@ -100,16 +102,21 @@ def generate_simulation_record(
     substeps: int = 20,
     mesh_type: str = "grid",
     storm: bool = False,
+    storm_wind_scale: float = 2.0,
+    storm_pressure_scale: float = 1500.0,
 ) -> SimulationRecord:
     """One full synthetic simulation on a multiscale mesh; the same record
     as the JAX package's for the same arguments.
 
     ``mesh_type``: 'grid' (regular quad cells) or 'triangulated' (random
-    irregular polygon + constrained Delaunay hierarchy)."""
+    irregular polygon + constrained Delaunay hierarchy).
+
+    ``storm=True`` draws a translating cyclone (``make_storm_fields``) that
+    drives the solver (wind setup and inverse barometer) and lands on
+    ``SimulationRecord.forcing`` as WX, WY, P, pooled to every scale. The
+    defaults are storm-sized: ~2 N/m^2 peak stress and a 15 hPa low."""
     if mesh_type not in ("grid", "triangulated"):
         raise ValueError(f"unknown mesh_type {mesh_type!r}")
-    if storm:
-        raise NotImplementedError("storm forcing is not ported yet")
 
     rng = np.random.default_rng(seed)
     dem_fn = random_dem_fn(rng, extent=nx * dx, relief=4.0)
@@ -126,9 +133,16 @@ def generate_simulation_record(
                               peak_discharge=peak_discharge)
     # simulate on the physical (non-ghost) cells of the finest mesh
     phys = _strip_ghosts(finest, len(ghosts.ghost_nodes))
+    fields = None
+    if storm:
+        fields = make_storm_fields(phys.face_xy, len(hydro), rng,
+                                   wind_scale=storm_wind_scale,
+                                   pressure_scale=storm_pressure_scale)
     t0 = time.time()
-    sim = run_diffusive_wave(phys, ghosts.bc_faces, hydro,
-                             dt_minutes=temporal_res, substeps=substeps)
+    sim = run_diffusive_wave(
+        phys, ghosts.bc_faces, hydro, dt_minutes=temporal_res, substeps=substeps,
+        wind=fields[:, :2] if fields is not None else None,
+        pressure=fields[:, 2] if fields is not None else None)
     solver_seconds = time.time() - t0
 
     # ghost rows mirror their BC face (reference graph_creation.py:1466-1481)
@@ -147,11 +161,63 @@ def generate_simulation_record(
     per_ghost = hydro_zoh[None, :] / max(len(ghosts.ghost_nodes), 1)
     bc_per_length = per_ghost / ghosts.edge_bc_length[:, None]
 
+    forcing, forcing_names = None, ()
+    if storm:
+        # the same zero-order-hold shift: fields[:, :, t] drives interval t,
+        # and with_step_forcing feeds the column at the last input frame
+        f0 = with_ghosts(np.concatenate([fields[:, :, 1:], fields[:, :, -1:]],
+                                        axis=2))       # [N0, 3, T]
+        forcing = np.stack([pool_to_scales(f0[:, f], mesh) for f in range(3)],
+                           axis=1).astype(np.float32)
+        forcing_names = STORM_FIELDS
+
     return SimulationRecord(mesh=mesh, wd=wd, vx=vx, vy=vy,
                             bc_per_length=bc_per_length,
                             temporal_res=temporal_res,
-                            solver_seconds=solver_seconds)
+                            solver_seconds=solver_seconds,
+                            forcing=forcing, forcing_names=forcing_names)
 
 
 def generate_dataset(n_sims: int, seed: int = 0, **kwargs) -> List[SimulationRecord]:
     return [generate_simulation_record(seed + i, **kwargs) for i in range(n_sims)]
+
+
+def make_storm_fields(xy: np.ndarray, T: int, rng: np.random.Generator,
+                      wind_scale: float = 0.5,
+                      pressure_scale: float = 500.0) -> np.ndarray:
+    """A translating smooth cyclone at the points ``xy`` -> ``[N, 3, T]``:
+    WX, WY wind stress [N/m^2] and P pressure anomaly [Pa] (the exogenous
+    fields of the reference's storm-surge extension, reference
+    utils/adforce_dataset.py:80, 243-260). A Gaussian envelope around a
+    centre that moves on a straight line across the domain, with the wind
+    tangential to the radius (cyclonic)."""
+    lo, hi = xy.min(axis=0), xy.max(axis=0)
+    extent = float(np.max(hi - lo))
+    p0 = lo + rng.uniform(0.1, 0.4, 2) * (hi - lo)
+    p1 = lo + rng.uniform(0.6, 0.9, 2) * (hi - lo)
+    radius = extent * rng.uniform(0.2, 0.35)
+    fields = np.zeros((xy.shape[0], 3, T), np.float32)
+    for t in range(T):
+        c = p0 + (p1 - p0) * (t / max(T - 1, 1))
+        d = xy - c[None, :]
+        envelope = np.exp(-(d ** 2).sum(axis=1) / (2 * radius ** 2))
+        fields[:, 0, t] = wind_scale * envelope * (-d[:, 1] / radius)
+        fields[:, 1, t] = wind_scale * envelope * (d[:, 0] / radius)
+        fields[:, 2, t] = -pressure_scale * envelope
+    return fields
+
+
+def add_storm_forcing(rec: SimulationRecord, seed: int = 0,
+                      wind_scale: float = 0.5,
+                      pressure_scale: float = 500.0) -> SimulationRecord:
+    """``rec`` with storm fields attached as input features only: the water
+    series stay as they are. ``generate_simulation_record(storm=True)``
+    gives a storm that drives the solver."""
+    rng = np.random.default_rng(seed)
+    mesh = rec.mesh
+    xy = mesh.meshes[0].face_xy   # [N0, 2], the ghost rows (mirrored BC faces) included
+    fields = make_storm_fields(xy, rec.wd.shape[1], rng, wind_scale=wind_scale,
+                               pressure_scale=pressure_scale)
+    pooled = np.stack([pool_to_scales(fields[:, f], mesh) for f in range(3)],
+                      axis=1).astype(np.float32)
+    return dataclasses.replace(rec, forcing=pooled, forcing_names=STORM_FIELDS)

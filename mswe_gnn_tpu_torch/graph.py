@@ -168,6 +168,13 @@ class FloodGraph:
     def num_nodes(self) -> int:
         return self.x_static.shape[-2]
 
+    @property
+    def num_node_features(self) -> int:
+        """The model's input columns a node: static, forcing (one a field,
+        appended every step) and dynamic."""
+        n_forcing = self.forcing.shape[-2] if self.forcing is not None else 0
+        return self.x_static.shape[-1] + n_forcing + self.x_dynamic.shape[-1]
+
     def finest_slice(self) -> slice:
         return self.spec.node_slice(0)
 

@@ -5,13 +5,20 @@ mswe_gnn_tpu/main.py, modes ``train`` and ``eval``):
   python3 -m mswe_gnn_tpu_torch.main eval  --config ... --ckpt runs/x/best --out runs/x_eval
 
 Runs on the GPU; ``--device cpu`` runs on the CPU, and without a GPU and
-without ``--device`` it raises. Data comes from the built-in synthetic
-generator (``synthetic_data`` config group; grid or triangulated meshes),
-cached as ``.npz`` under ``MSWE_DATA_CACHE`` (default ``runs/data_cache``).
+without ``--device`` it raises. Data comes from one of three sources, as the
+config says:
 
-Not ported, and raising: ``sweep`` (wandb), the reference-pickle and
-map-NetCDF data paths (``dataset_folder``, ``map_folder``), more than one
-device (a ``parallel`` block with data x graph > 1), and the report figures.
+- ``dataset_parameters.dataset_folder``: the reference's pickled datasets
+  (``<folder>/train|test/<name>.pkl``, data/torch_compat.py);
+- ``dataset_parameters.map_folder``: raw D-HYDRO map files
+  (``output_<i>_map.nc`` and ``overview.csv``, data/netcdf.py; NetCDF-4 files
+  need h5py, classic NetCDF-3 files do not);
+- otherwise the built-in synthetic generator (``synthetic_data`` config
+  group; grid or triangulated meshes, storm forcing), cached as ``.npz``
+  under ``MSWE_DATA_CACHE`` (default ``runs/data_cache``).
+
+Not ported, and raising: ``sweep`` (wandb), more than one device (a
+``parallel`` block with data x graph > 1), and the report figures.
 Checkpoints are the port's npz format (training/checkpoint.py); an orbax
 checkpoint of the JAX package is converted first (tests/torch_port_convert.py).
 """
@@ -20,6 +27,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import sys
 import time
@@ -32,8 +40,10 @@ from mswe_gnn_tpu_torch import resolve_device
 from mswe_gnn_tpu_torch.data.dataset import (fit_dataset_scalers, make_spec,
                                              process_record, to_temporal_samples,
                                              union_spec)
+from mswe_gnn_tpu_torch.data.netcdf import load_map_folder
 from mswe_gnn_tpu_torch.data.npz_store import load_records, record_arrays, save_records
 from mswe_gnn_tpu_torch.data.synthetic import GENERATOR_VERSION, generate_dataset
+from mswe_gnn_tpu_torch.data.torch_compat import load_reference_pickle
 from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
 from mswe_gnn_tpu_torch.models import build_model, count_params
 from mswe_gnn_tpu_torch.training.checkpoint import restore_params_only, save_checkpoint
@@ -99,31 +109,80 @@ def _solver_label(cfg: Dict) -> str:
             else "synthetic_solver")
 
 
+def train_test_split(items: Sequence, test_size, random_state) -> Tuple[list, list]:
+    """(train, test) lists as ``sklearn.model_selection.train_test_split(items,
+    test_size=test_size, random_state=random_state)`` gives them (its
+    ``ShuffleSplit``), in numpy: ``ceil(test_size * n)`` test items for a
+    fraction (an int is a count), from ``RandomState(random_state)
+    .permutation(n)``: its head is the test list and the rest the train
+    list, each in permutation order."""
+    n = len(items)
+    n_test = (int(test_size) if isinstance(test_size, (int, np.integer))
+              else int(math.ceil(float(test_size) * n)))
+    if not 0 < n_test < n:
+        raise ValueError(f"test_size={test_size} with {n} items leaves an empty split")
+    perm = np.random.RandomState(random_state).permutation(n)
+    return [items[i] for i in perm[n_test:]], [items[i] for i in perm[:n_test]]
+
+
+def _load_reference_split(dp: Dict):
+    """The reference's pickled datasets with the reference's split
+    (reference utils/dataset.py:292-331): the train pickle
+    ``<dataset_folder>/train/<train_dataset_name>.pkl`` shuffled by ``seed``
+    and cut to ``train_size``; the test pickle from ``.../test/``, size 100,
+    seed 0 (not shuffled); validation split off the train records."""
+    folder = dp["dataset_folder"]
+    seed = dp.get("seed", 42)
+    train_records = load_reference_pickle(
+        os.path.join(folder, "train", dp["train_dataset_name"] + ".pkl"),
+        size=dp.get("train_size", 100), seed=seed)
+    test_records = load_reference_pickle(
+        os.path.join(folder, "test",
+                     dp.get("test_dataset_name", dp["train_dataset_name"]) + ".pkl"),
+        size=100, seed=0)
+    val_prcnt = dp.get("val_prcnt", 0.25)
+    if val_prcnt:
+        train_records, val_records = train_test_split(train_records, val_prcnt, seed)
+    else:
+        val_records = train_records
+    return train_records, val_records, test_records
+
+
 def prepare_data(cfg: Dict) -> Tuple[List[FloodGraph], List[FloodGraph],
                                      List[FloodGraph], Dict, object]:
-    """Build train/val/test temporal datasets (reference main.py:26-56),
-    from the synthetic generator: the last 20% of the records are the test
-    split, and a seeded permutation of the rest gives validation and
+    """Build train/val/test temporal datasets (reference main.py:26-56).
+    Reference pickles come with their own train and test files; from a map
+    folder or the synthetic generator the last 20% of the records are the
+    test split, and a seeded permutation of the rest gives validation and
     training."""
     sd = cfg["synthetic_data"]
     dp = cfg["dataset_parameters"]
     tdp = cfg["temporal_dataset_parameters"]
-    for key in ("dataset_folder", "map_folder"):
-        if dp.get(key):
-            raise NotImplementedError(
-                f"dataset_parameters.{key}: the reference-pickle and map-NetCDF data "
-                "paths are not ported; the port reads the synthetic_data group only")
     rng = np.random.default_rng(dp.get("seed", 0))
-    records = _generate_cached(sd, dp["temporal_res"])
 
-    n = len(records)
-    n_test = max(1, int(round(n * 0.2)))
-    test_records = records[-n_test:]
-    pool = records[:-n_test]
-    n_val = max(1, int(round(len(pool) * dp.get("val_prcnt", 0.25))))
-    perm = rng.permutation(len(pool))
-    val_records = [pool[i] for i in perm[:n_val]]
-    train_records = [pool[i] for i in perm[n_val:]]
+    if dp.get("dataset_folder"):
+        train_records, val_records, test_records = _load_reference_split(dp)
+        records = train_records + val_records + test_records
+    else:
+        if dp.get("map_folder"):
+            records = load_map_folder(
+                dp["map_folder"], dp["temporal_res"],
+                num_scales=sd.get("num_scales", 1),
+                overview_file=dp.get("overview_file"),
+                dem_folder=dp.get("dem_folder"),
+                hydrograph_folder=dp.get("hydrograph_folder"),
+                limit=dp.get("train_size"))
+        else:
+            records = _generate_cached(sd, dp["temporal_res"])
+
+        n = len(records)
+        n_test = max(1, int(round(n * 0.2)))
+        test_records = records[-n_test:]
+        pool = records[:-n_test]
+        n_val = max(1, int(round(len(pool) * dp.get("val_prcnt", 0.25))))
+        perm = rng.permutation(len(pool))
+        val_records = [pool[i] for i in perm[:n_val]]
+        train_records = [pool[i] for i in perm[n_val:]]
 
     scalers = fit_dataset_scalers(train_records, cfg["scalers"])
     feats = dict(node_features=cfg["selected_node_features"],
@@ -161,11 +220,8 @@ def build_experiment_model(cfg: Dict, sample: FloodGraph, device=None):
     """(model cfg, parameters on ``device``, apply) for the ``models`` group;
     the number of scales comes from the data (reference main.py:60)."""
     tdp = cfg["temporal_dataset_parameters"]
-    n_forcing = sample.forcing.shape[1] if sample.forcing is not None else 0
     return build_model(
-        cfg["models"],
-        num_node_features=(sample.x_static.shape[1] + n_forcing
-                           + sample.x_dynamic.shape[1]),
+        cfg["models"], num_node_features=sample.num_node_features,
         num_edge_features=sample.edge_attr.shape[1],
         num_scales=sample.spec.num_scales,
         previous_t=tdp["previous_t"], device=device)

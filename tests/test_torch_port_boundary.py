@@ -4,9 +4,14 @@
   libraries or the JAX package (an AST scan of every import);
 - the entry points (the CLI's ``main`` included) run on the GPU unless the
   caller names a device, and raise where there is none, with no silent CPU
-  fallback.
+  fallback;
+- the package, its data layer and its CLI import where h5py and sklearn are
+  missing (as on the GPU machine): an HDF5 file then raises an error that
+  names h5py, and a classic NetCDF-3 map file still reads.
 """
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -41,7 +46,8 @@ def test_port_imports_nothing_of_jax():
     assert {f"mswe_gnn_tpu_torch/{m}.py" for m in (
         "native", "config", "main", "data/triangulate", "data/npz_store", "data/synthetic",
         "data/meshing", "utils/metrics", "utils/analysis", "utils/logging", "ops/segment",
-        "models/convs", "models/gnn")} <= scanned
+        "models/convs", "models/gnn", "data/interp", "data/augment", "data/io",
+        "data/netcdf", "data/torch_compat", "compat/torch_import")} <= scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
            for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -121,3 +127,58 @@ def test_rollout_without_device_raises_without_cuda(no_cuda):
         rollout(apply_fn, params, cfg, g, steps=2)
     preds = rollout(apply_fn, params, cfg, g, steps=2, device="cpu")
     assert preds.shape == (g.num_nodes, 2, 2) and apply_fn is msgnn.apply_msgnn
+
+
+def test_hdf5_without_h5py(monkeypatch, tmp_path):
+    """With h5py hidden: a map file with the HDF5 signature and the HDF5
+    record store raise an ImportError that names h5py; a classic NetCDF-3
+    map file reads as it does with h5py."""
+    import numpy as np
+
+    from mswe_gnn_tpu_torch.data import io as port_io
+    from mswe_gnn_tpu_torch.data import netcdf as port_netcdf
+
+    nx = ny = 4
+    wd = np.random.default_rng(0).uniform(0, 1, (nx * ny, 3))
+    kw = dict(nx=nx, ny=ny, dx=100.0, wd=wd, vx=wd * 0.1, vy=wd * 0.2, bc_faces=[1, 2])
+    h5, nc3 = str(tmp_path / "h5_map.nc"), str(tmp_path / "nc3_map.nc")
+    port_netcdf.write_grid_map_netcdf(h5, **kw)
+    port_netcdf.write_grid_map_netcdf(nc3, classic=True, **kw)
+    want = port_netcdf.read_map_variables(nc3, ["mesh2d_waterdepth", "mesh2d_face_nodes"])
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        port_netcdf.read_map_variables(h5, ["mesh2d_waterdepth"])
+    with pytest.raises(ImportError, match="h5py"):
+        port_netcdf.write_grid_map_netcdf(h5, **kw)
+    with pytest.raises(ImportError, match="h5py"):
+        port_io.save_records(str(tmp_path / "r.h5"), [])
+    with pytest.raises(ImportError, match="h5py"):
+        port_io.LazyFloodDataset([h5], scalers={})
+    got = port_netcdf.read_map_variables(nc3, ["mesh2d_waterdepth", "mesh2d_face_nodes"])
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+    mesh, bc_faces, _ = port_netcdf.mesh_from_map_netcdf(nc3)
+    assert mesh.num_faces == nx * ny and sorted(bc_faces.tolist()) == [1, 2]
+
+
+def test_port_imports_without_h5py_and_sklearn():
+    """A fresh interpreter with h5py and sklearn hidden imports the package,
+    its data layer, the reference-checkpoint import and the CLI, and none of
+    them imports scipy, h5py or sklearn on the way."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['sklearn'] = None\n"
+        "import mswe_gnn_tpu_torch.main\n"
+        "import mswe_gnn_tpu_torch.data.io, mswe_gnn_tpu_torch.data.netcdf\n"
+        "import mswe_gnn_tpu_torch.data.interp, mswe_gnn_tpu_torch.data.augment\n"
+        "import mswe_gnn_tpu_torch.data.torch_compat, mswe_gnn_tpu_torch.compat.torch_import\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('scipy', 'h5py', 'sklearn', 'jax', 'mswe_gnn_tpu') and sys.modules[m] is not None]\n"
+        "assert loaded == [], loaded\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]

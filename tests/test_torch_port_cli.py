@@ -290,8 +290,11 @@ def test_unported_cli_options_raise(tmp_path, what):
         with pytest.raises(NotImplementedError, match="sweep"):
             port_main.main(["sweep", "--device", "cpu"])
     elif what in ("dataset_folder", "map_folder"):
-        cfg = port_config.with_defaults({"dataset_parameters": {what: "/nowhere"}})
-        with pytest.raises(NotImplementedError, match=what):
+        # both data paths are ported now (tests/test_torch_port_data.py): the
+        # option reads its source, and a missing one raises
+        cfg = port_config.with_defaults({"dataset_parameters": {
+            what: "/nowhere", "train_dataset_name": "ds"}})
+        with pytest.raises(FileNotFoundError, match="nowhere"):
             port_main.prepare_data(cfg)
     elif what == "parallel":
         with pytest.raises(NotImplementedError, match="item 10"):

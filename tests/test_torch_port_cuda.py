@@ -420,3 +420,30 @@ def test_learned_pooling_on_the_card_matches_the_cpu(cuda, small_problem):
     for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-6)
     assert all(bool(leaf.ne(0).any()) for leaf in tree_leaves(grads_c["pooling_mlp"]["layers"]))
+
+
+def test_forced_rollout_step_0_through_the_kernel(cuda):
+    """The bench MSGNN (bf16) on a storm-forced bench graph at a 24x24 grid:
+    step 0 with the forcing columns appended, through the ELL kernel and
+    through the plain hop (chip_smoke phase 12's limit: two bf16 ulps of the
+    largest prediction), its launches by shape those of ``hops_per_step``;
+    the forcing reaches the prediction."""
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_model
+
+    sample, _ = build_bench_sample(24, 24, 6, storm=True)
+    assert sample.forcing.shape[1] == 3
+    cfg, params, apply_fn = build_bench_model(sample, device=cuda)
+    with torch.inference_mode():
+        gt = cs.first_step(prepare_graph(params, cfg, sample.to(cuda)))
+        assert gt.x_static.shape[1] == sample.x_static.shape[1] + 3
+        cs.reset_all_launches()
+        got = apply_fn(params, cfg, gt)
+        torch.cuda.synchronize()
+        assert cs.read_launches() == cs.hops_per_step(cfg, sample.spec)
+        with cs.plain_hops():
+            want = apply_fn(params, cfg, gt)
+        calm = apply_fn(params, cfg, gt.replace(x_static=torch.cat(
+            [gt.x_static[:, :-3], torch.zeros_like(gt.x_static[:, -3:])], dim=1)))
+    limit = 2 * 2.0 ** -8 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= limit
+    assert float((calm - got).abs().max()) > 0

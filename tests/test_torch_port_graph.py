@@ -94,16 +94,27 @@ def test_graph_to_moves_every_tensor(records):
 
 @pytest.mark.parametrize("kw", [{"storm": True}])
 def test_unported_generator_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        port_generate(1, seed=0, nx=8, ny=8, num_scales=2, total_hours=2,
-                      substeps=2, **kw)
+    """Storm forcing, once unported here, no longer raises: the record
+    carries the three forcing fields on every node and frame (its parity
+    with JAX is in tests/test_torch_port_forcing.py)."""
+    (rec,) = port_generate(1, seed=0, nx=8, ny=8, num_scales=2, total_hours=2,
+                           substeps=2, **kw)
+    assert rec.forcing_names == ("WX", "WY", "P")
+    assert rec.forcing.shape == (rec.wd.shape[0], 3, rec.wd.shape[1])
+    assert np.isfinite(rec.forcing).all()
 
 
 def test_lstsq_slopes_raise(records):
+    """lstsq slopes, once unported here, no longer raise: the features are
+    finite and shaped as the edge method's (their parity with JAX is in
+    tests/test_torch_port_data.py)."""
     _, port_recs = records
-    with pytest.raises(NotImplementedError):
-        port_dataset.process_record(port_recs[0], {}, node_features={"slopes": True},
-                                    slope_method="lstsq")
+    lstsq = port_dataset.process_record(port_recs[0], {}, node_features={"slopes": True},
+                                        slope_method="lstsq").x_static
+    edge = port_dataset.process_record(port_recs[0], {},
+                                       node_features={"slopes": True}).x_static
+    assert lstsq.shape == edge.shape
+    assert np.isfinite(np.asarray(lstsq)).all()
 
 
 def test_bench_problem_graph_matches_bench_py():

@@ -191,21 +191,25 @@ def test_build_model_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
-    """What the port still leaves out raises: storm forcing, lstsq slopes and
-    vmap-stacked batches (ROADMAP Queue 1). The single-scale GNN, learned
-    pooling and the edge-major SWEGNN path are ported
-    (tests/test_torch_port_gnn.py); a model or layer type that neither
-    package knows raises ValueError."""
+    """What the port still leaves out raises: vmap-stacked batches (ROADMAP
+    Queue 1). The single-scale GNN, learned pooling and the edge-major
+    SWEGNN path are ported (tests/test_torch_port_gnn.py), and so are storm
+    forcing and lstsq slopes (tests/test_torch_port_forcing.py,
+    tests/test_torch_port_data.py); a model, layer or slope method that
+    neither package knows raises ValueError."""
     from mswe_gnn_tpu_torch.data import dataset as port_dataset
     from mswe_gnn_tpu_torch.data.synthetic import generate_dataset as port_generate
     from mswe_gnn_tpu_torch.graph import stack_graphs
     from mswe_gnn_tpu_torch.training import train as port_train
 
     kw = dict(num_node_features=6, num_edge_features=1, num_scales=3, previous_t=2)
-    with pytest.raises(NotImplementedError, match="storm"):
-        port_generate(1, nx=8, ny=8, storm=True)
-    with pytest.raises(NotImplementedError, match="lstsq"):
-        port_dataset._node_slopes(None, "lstsq")
+    forced = port_generate(1, nx=8, ny=8, num_scales=2, total_hours=4, substeps=2,
+                           storm=True)[0]
+    assert forced.forcing.shape == (forced.mesh.num_nodes, 3, forced.wd.shape[1])
+    sx, sy = port_dataset._node_slopes(forced.mesh, "lstsq")
+    assert sx.shape == sy.shape == (forced.mesh.num_nodes,)
+    with pytest.raises(ValueError, match="slope_method"):
+        port_dataset._node_slopes(forced.mesh, "plane")
     _, g = sample_pair(previous_t=2, rollout_steps=2, index=0)
     cfg, params, apply_fn = build_model({"hid_features": 8}, device="cpu",
                                         **dict(kw, num_node_features=g.x_static.shape[1]
