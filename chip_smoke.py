@@ -38,7 +38,8 @@ Phases, each printing its own lines:
    on its own inputs, then kernel, L2 flushed, plain version, bound, the launch
    floor of the harness, each launch (block, grid, registers, warps an
    SM), and the launches of each shape on each path as phases 4, 5, 7 and
-   8 counted them, with their sum of launches x time.
+   8 counted them, with their sum of launches x time; and the ELL hop and
+   its backward at phase 13's ring partition shapes, on part 0's tables.
 7. batched serving -- the 47-step rollout on concat unions of 4 and of 20
    bench graphs (``concat_graphs``, no band plan): launches by shape held
    against the tiled spec's, the output checked as in phase 4, every
@@ -107,13 +108,37 @@ Phases, each printing its own lines:
    summary's solver label ``dhydro`` with a finite speed-up, every launched
    shape held; (e) ``train`` on a ``dataset_folder`` of reference pickles
    written by ``tests/pyg_fixture.py``, its split sizes held.
+13. ring -- ring-halo graph parallelism: phase 4's bench graph ring-reordered
+   (``parallel/dist_swegnn.py``) and split into 8 ring partitions, all on
+   ``cuda:0`` (the largest count <= 8 with a ring plan, each count that
+   fails printed). (a) the bench MSGNN's 47-step rollout through the ring
+   ``apply_fn`` (``parallel/dist_train.py``) in bf16 and float32, launches
+   by ``(kernel, Nd, Ns)`` held against the plans', against the
+   single-device port on the same reordered graph and weights: step 0
+   within 1e-5 max|pred| in float32 and two bf16 ulps of max|pred| in bf16,
+   the float32 rollout (cut to ``RING_F32_STEPS`` steps) within a relative
+   L2 of 1e-4; the bf16 rollout timed as phase 4's. (b) phase 5's train
+   step through the ring: float32 loss and gradients against the
+   single-device port (``hold_ring_grads``: the loss within 1e-6, cosine
+   and relative L2 over the tree, every leaf at phase 5's limit or, where
+   rounding alone moves it further, within its movement under a one-ulp
+   change of the inputs), then the bf16 step counted (forward and
+   backward) and timed. (c) the overlap and width-2 plans: one float32 step against (a)'s step 0
+   within 2e-5 |ref| + 1e-6 max|ref|, launches held. (d)
+   ``configs/ring_halo.yaml`` through ``main.run_training`` at its own
+   width and corpus: at its 8 parts it has no ring plan and must raise;
+   then at the largest count with a plan (printed as a cut), its batch
+   size cut to 4 and forced back to 1, a finite history and summary, ELL
+   forward and backward launched. Every partition shape launched on (a)-(d)
+   held bit-equal to the plain versions on every part's table.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
 serving at batch 4 and 20, train step at batch 4, the CLI's train, eval and
 trained-weights eval, phase 11's rollout, train step, CLI train and eval
-and learned-pooling step, and phase 12's forced rollout and train step and
-its CLI runs), each path counted from 0 just before it runs;
+and learned-pooling step, phase 12's forced rollout and train step and its
+CLI runs, and phase 13's ring rollouts, train step, plan variants and CLI
+run), each path counted from 0 just before it runs;
 ``launches_by_path`` holds each path's own count, the figure to read for
 one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -123,8 +148,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -757,6 +784,7 @@ def plain_hops():
     """The model with every hop (forward and backward) through the plain
     PyTorch versions under autograd, instead of the kernels."""
     from mswe_gnn_tpu_torch.models import swegnn
+    from mswe_gnn_tpu_torch.parallel import dist_swegnn
 
     def hop_plain(*args, out_table=None, **kw):
         return hop_ops.hop_reference(*args, **kw)
@@ -765,6 +793,7 @@ def plain_hops():
         return band_ops.band_hop_reference(*args, **kw)
 
     with mock.patch.object(swegnn, "hop", hop_plain), \
+            mock.patch.object(dist_swegnn, "hop", hop_plain), \
             mock.patch.object(swegnn, "band_hop", band_plain):
         yield
 
@@ -2033,6 +2062,430 @@ def phase_data(smi, checks) -> dict:
             "map_speed_up": speed_up}
 
 
+# ---------------------------------------------------------------- phase 13
+RING_PARTS = 8
+RING_F32_STEPS = 12     # (a)'s float32 rollout, cut from 47 to keep phase 13 short
+RING_CONFIG = "configs/ring_halo.yaml"
+
+
+def ring_tables(plans) -> dict:
+    """Every hop table of placed ring plans (``place_dist_inputs``), each
+    part's, by ``(Nd, Ns)``: ``[(slot table, slot mask, same_block)]``. A
+    group's source rows are its out-slot table's (``out_ptr`` has Ns + 1
+    entries); a processor's interior group hops against its own block."""
+    tables = collections.defaultdict(list)
+
+    def add(tab, mask, out_table, same_block=False):
+        tables[tab.shape[0], out_table[0].numel() - 1].append((tab, mask, same_block))
+
+    for kind, plan_list in (("proc", plans["proc"]), ("unpool", plans["unpool"])):
+        for pl in plan_list:
+            if "groups" in pl:
+                for g in pl["groups"]:
+                    for tab, mask, out_table in zip(g["tab"], g["mask"], g["out_table"]):
+                        add(tab, mask, out_table, kind == "proc" and not g["buffered"])
+                continue
+            for p, (tab, mask) in enumerate(zip(pl["src_tab"], pl["smask"])):
+                add(tab, mask, pl["out_table"][p])
+                for (base, pfx), out_table in pl["ext_out_table"][p].items():
+                    add(pl["ext_tab"][p][base:base + pfx], pl["ext_mask"][p][base:base + pfx],
+                        out_table)
+    return tables
+
+
+def ring_hops_per_step(cfg, plans) -> collections.Counter:
+    """Hop launches of one ring MSGNN step by ``(kernel, Nd, Ns)``, from the
+    config and the plans: a processor layer of K hops launches each slot
+    group's hop on every part K times (a width-W plan: the block's hop every
+    hop, and both sides' halo rows between a window's exchanges), every
+    un-pool layer its groups once a part."""
+    parts = len(plans["devices"])
+    counts = collections.Counter()
+
+    def group_keys(pl):
+        return [("hop", g["tab"][0].shape[0], g["out_table"][0][0].numel() - 1)
+                for g in pl["groups"]]
+
+    for k, scale in processor_layers(cfg):
+        pl = plans["proc"][scale]
+        if "groups" in pl:
+            for key in group_keys(pl):
+                counts[key] += k * parts
+            continue
+        width, ring_ptr, halo = pl["width"], pl["ring_ptr"], pl["halo"]
+        block = pl["src_tab"][0].shape[0]
+        n_buf = block + 2 * halo
+        done = 0
+        while done < k:
+            w = min(width, k - done)
+            for j in range(w):
+                counts["hop", block, n_buf] += parts
+                if j < w - 1 and ring_ptr[width - 1] > 0 and ring_ptr[w - 1 - j] > 0:
+                    counts["hop", ring_ptr[w - 1 - j], n_buf] += 2 * parts
+            done += w
+    for pl in plans["unpool"]:
+        for key in group_keys(pl):
+            counts[key] += cfg.intra_cfg().K * parts
+    return counts
+
+
+def hold_ring_shapes(checks, path, plans, counts) -> dict:
+    """Each ``(kernel, Nd, Ns)`` that ``path`` launched (``counts``) held bit
+    for bit against the plain versions, as phase 6 holds its cases: the ELL
+    forward, and where the path ran it the backward, in float32 and bf16 and
+    every mode, on every part's table of that shape (random states with dry
+    rows, random flux zero on masked slots). Raises if a launched shape has
+    no table. -> the worst error by kernel."""
+    tables = ring_tables(plans)
+    launched = {key for key, n in counts.items() if n}
+    worst = {"hop": 0.0, "hop_bwd": 0.0}
+    held = set()
+    for nd, ns in sorted({(nd, ns) for _, nd, ns in launched}):
+        if (nd, ns) not in tables:
+            raise AssertionError(f"[ring] {path}: launched ({nd}, {ns}) has no plan table")
+        backward = ("hop_bwd", nd, ns) in launched
+        for i, (tab, mask, same) in enumerate(tables[nd, ns]):
+            for dtype in DTYPES:
+                g = torch.Generator().manual_seed(5000 + 7 * i + nd)
+                dst = torch.randn(nd, FEAT, generator=g)
+                dst[torch.rand(nd, generator=g) < 0.3] = 0.0
+                src = torch.randn(ns, FEAT, generator=g)
+                src[torch.rand(ns, generator=g) < 0.3] = 0.0
+                s = torch.randn(nd, tab.shape[1], FEAT, generator=g) * (mask.cpu() > 0)[..., None]
+                dst, src, s = (x.to("cuda", dtype) for x in (dst, src, s))
+                src = dst if same else src
+                args = (dst, src, tab.contiguous(), s.contiguous())
+                case = f"{path} ({nd}, {ns}) part table {i}"
+                out_table = hop_ops.out_slot_table(args[2], ns, mask)
+                up = upstream(5100 + nd, dst)
+                for mode, (grad, upw) in MODES.items():
+                    worst["hop"] = max(worst["hop"], checks.hold(
+                        "hop", case, dtype, mode,
+                        (hop_ops.hop(*args, with_gradient=grad, upwind=upw),),
+                        (hop_ops.hop_reference(*args, with_gradient=grad, upwind=upw),),
+                        exact=True))
+                    if backward:
+                        worst["hop_bwd"] = max(worst["hop_bwd"], checks.hold(
+                            "hop_bwd", case, dtype, mode,
+                            hop_ops.hop_backward(*args, up, *out_table, grad, upw),
+                            hop_ops.hop_backward_reference(*args, up, *out_table, grad, upw),
+                            exact=True))
+        held |= {("hop", nd, ns)} | ({("hop_bwd", nd, ns)} if backward else set())
+    missing = launched - held
+    if missing:
+        raise AssertionError(f"[ring] {path}: launched shapes held nowhere: {sorted(missing)}")
+    log(f"[ring] {path}: every launched shape held bit-equal to the plain versions (float32 "
+        f"and bf16, 3 modes, every part's table): "
+        + ", ".join(f"({nd}, {ns}) x{len(tables[nd, ns])}"
+                    + (" +bwd" if ("hop_bwd", nd, ns) in launched else "")
+                    for nd, ns in sorted({(nd, ns) for _, nd, ns in launched})))
+    return worst
+
+
+def ring_timing_cases(plans, cfg) -> list:
+    """The ring path's ELL shapes for phase 6, bf16, on part 0's tables: each
+    processor scale's hop and each level's un-pool hop, the backward at each
+    (the ring train step runs both)."""
+    cases, nbytes = [], torch.tensor([], dtype=torch.bfloat16).element_size()
+    g = torch.Generator().manual_seed(6000)
+    for key, n in sorted(ring_hops_per_step(cfg, plans).items()):
+        _, nd, ns = key
+        tab, mask, same = ring_tables(plans)[nd, ns][0]
+        dst = torch.randn(nd, FEAT, generator=g)
+        dst[torch.rand(nd, generator=g) < 0.3] = 0.0
+        src = torch.randn(ns, FEAT, generator=g)
+        src[torch.rand(ns, generator=g) < 0.3] = 0.0
+        s = torch.randn(nd, tab.shape[1], FEAT, generator=g) * (mask.cpu() > 0)[..., None]
+        dst, src, s = (x.to("cuda", torch.bfloat16) for x in (dst, src, s))
+        args = (dst, dst if same else src, tab.contiguous(), s.contiguous())
+        grad = key in ring_processor_keys(plans)
+        name = f"ring part Nd={nd} Ns={ns} D={tab.shape[1]} F={FEAT} bf16 ring table"
+        cases.append(timing_case(
+            "hop", name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
+            partial(hop_ops.hop_reference, *args, with_gradient=grad),
+            hop_work(nd, ns, tab.shape[1], FEAT, nbytes, same, 4 if grad else 3),
+            launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd)))
+        table = hop_ops.out_slot_table(args[2], ns, mask)
+        up = upstream(6100 + nd, dst)
+        cases.append(timing_case(
+            "hop_bwd", name, nd, ns, partial(hop_ops.hop_backward, *args, up, *table, grad),
+            partial(hop_ops.hop_backward_reference, *args, up, *table, grad),
+            hop_bwd_work(nd, ns, tab.shape[1], FEAT, nbytes, same, grad),
+            table_bytes=table_bytes(table),
+            launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd, "bwd",
+                               (ns, int(same)))))
+    return cases
+
+
+def ring_processor_keys(plans) -> set:
+    """The launch keys of the processor hops (gradient mode); the others are
+    the un-pool hops (no-gradient mode)."""
+    keys = set()
+    for pl in plans["proc"]:
+        for g in pl.get("groups", ()):
+            keys.add(("hop", g["tab"][0].shape[0], g["out_table"][0][0].numel() - 1))
+        if "groups" not in pl:
+            keys.add(("hop", pl["src_tab"][0].shape[0], pl["out_table"][0][0].numel() - 1))
+    return keys
+
+
+def ring_layout(plans) -> str:
+    def desc(pl):
+        if "groups" not in pl:
+            return (f"B={pl['src_tab'][0].shape[0]} H={pl['halo']} W={pl['width']} "
+                    f"rings {pl['ring_ptr']}")
+        return (f"B={pl['groups'][0]['tab'][0].shape[0]} H={pl['halo']} slots "
+                + "+".join(f"{g['hi'] - g['lo']}{'b' if g['buffered'] else 'l'}"
+                           for g in pl["groups"]))
+    return ("processors " + "; ".join(desc(pl) for pl in plans["proc"])
+            + " | pools " + "; ".join(desc(pl) for pl in plans["pool"])
+            + " | un-pools " + "; ".join(desc(pl) for pl in plans["unpool"]))
+
+
+def ring_parts(graph, most, **kw) -> int:
+    """The largest part count <= ``most`` whose ring plans exist for
+    ``graph``; each count that fails is printed with its reason."""
+    from mswe_gnn_tpu_torch.parallel.dist_swegnn import ring_plan_failure
+
+    for parts in range(most, 1, -1):
+        why = ring_plan_failure(graph, parts, **kw)
+        if why is None:
+            return parts
+        log(f"[ring] no ring plan at {parts} parts: {why}")
+    raise AssertionError(f"[ring] no ring plan at any part count from {most} down to 2")
+
+
+def hold_ring_grads(ring, single, nudged, parts, rollout_steps) -> dict:
+    """The ring's float32 loss and gradients against the single-device
+    port's. Limits: the loss within 1e-6 relative, cosine >= 0.9999999 and
+    relative L2 <= 1e-6 over the whole tree, and every leaf within phase
+    5's 1e-4 max|leaf| + 1e-12 or, for a leaf that rounding alone moves
+    further, within its own movement under a one-ulp change of the inputs
+    (``nudged``: the single-device gradient with ``x_dynamic`` one float32
+    ulp up). Phase 5 compares two computations that round at the same
+    points; the ring's backward adds a state's gradient in other partial
+    sums (its block's and its neighbours' halo terms), and a PReLU slope
+    whose gradient cancels to ~1e-9 moves by 1e-3 of itself under a
+    one-ulp input change on an H100 (``tests/torch_port_ring_grads.py``). (``x_dynamic * (1 + 2**-23)`` moves each entry by
+    one or two float32 ulps.)"""
+    from mswe_gnn_tpu_torch import tree_leaves
+
+    r = compare_grads(*ring, *single)
+    names = leaf_names(single[1])
+    loose = []
+    for n, a, b, c in zip(names, tree_leaves(ring[1]), tree_leaves(single[1]),
+                          tree_leaves(nudged[1])):
+        d, m, dn = (float((a - b).abs().max()), float(b.abs().max()),
+                    float((c - b).abs().max()))
+        if d > 1e-4 * m + 1e-12:
+            loose.append((n, d, m, dn))
+    log(f"[ring] float32 train step ({rollout_steps}-step pushforward, remat) through "
+        f"{parts} parts vs one device: loss rel diff {r['loss_rel']:.3e}, gradient cosine "
+        f"{r['cos']:.9f}, relative L2 {r['rel']:.3e}, worst leaf max|diff|/max|leaf| "
+        f"{r['worst_leaf']:.3e}; worst leaves "
+        + "; ".join(f"{n} {q:.3e} (max|diff| {d:.3e}, max|leaf| {m:.3e})"
+                    for n, q, d, m in r["worst"])
+        + "; leaves past 1e-4 max|leaf| + 1e-12, with their one-ulp movement: "
+        + ("; ".join(f"{n} {d:.3e} (one ulp {dn:.3e}, max|leaf| {m:.3e})"
+                     for n, d, m, dn in loose) or "none")
+        + " (limits: loss 1e-6, cosine 0.9999999, L2 1e-6, each leaf as the docstring)")
+    if not (r["loss_rel"] <= 1e-6 and r["cos"] >= 0.9999999 and r["rel"] <= 1e-6
+            and all(d <= dn for _, d, _, dn in loose)):
+        raise AssertionError("[ring] float32 ring train-step gradients disagree with the "
+                             "single-device port")
+    r["past_phase5_limit"] = loose
+    return r
+
+
+def ring_step0(apply_fn, params, cfg, graph):
+    with torch.inference_mode():
+        return apply_fn(params, cfg, first_step(graph))
+
+
+def phase_ring(smi, checks, sample, cfg, params) -> dict:
+    """Ring-halo graph parallelism on the card: the bench MSGNN split into
+    ``RING_PARTS`` ring partitions, all on ``cuda:0``. (a) its 47-step
+    rollout through the ring ``apply_fn`` in bf16 and float32 against the
+    single-device port on the same reordered graph and weights; (b) phase
+    5's train step through the ring, its float32 gradients against the
+    single-device port's; (c) the overlap and width-2 plans, step 0 against
+    (a); (d) ``configs/ring_halo.yaml`` through ``run_training``. Every
+    launched partition shape held against the plain hop (into ``checks``)."""
+    from mswe_gnn_tpu_torch import config as config_lib
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_train_step
+    from mswe_gnn_tpu_torch.models.msgnn import apply_msgnn
+    from mswe_gnn_tpu_torch.parallel.dist_swegnn import (build_dist_msgnn_inputs,
+                                                         place_dist_inputs,
+                                                         reorder_graph_for_ring)
+    from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn, prepare_ring_graphs
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+    from mswe_gnn_tpu_torch.training.train import loss_and_grads
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    ring_graph, _ = reorder_graph_for_ring(sample, RING_PARTS)
+    parts = ring_parts(ring_graph, RING_PARTS)
+    devices = [torch.device("cuda", 0)] * parts
+    plans = place_dist_inputs(build_dist_msgnn_inputs(ring_graph, parts), devices)
+    graph = ring_graph.to(device)
+    log(f"[ring] bench graph ring-reordered and planned on the host in "
+        f"{time.perf_counter() - t0:.1f} s: {parts} parts on {devices[0]}; "
+        + ring_layout(plans))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    steps = graph.y.shape[-1]
+    paths, out = {}, {"parts": parts}
+
+    # (a) the rollout through the ring, bf16 and float32, against one device
+    ring_apply = {c.compute_dtype: make_dist_apply_fn(devices, c, graph) for c in (cfg, cfg32)}
+    per_step = ring_hops_per_step(cfg, plans)
+    log(f"[ring] cut: the float32 ring rollout {steps} -> {RING_F32_STEPS} steps")
+    for c, path in ((cfg, "ring_serving"), (cfg32, "ring_serving_f32")):
+        apply_fn = ring_apply[c.compute_dtype]
+        n = steps if c is cfg else RING_F32_STEPS
+        reset_all_launches()
+        preds = rollout(apply_fn, params, c, graph, n, device=device)
+        torch.cuda.synchronize()
+        paths[path] = read_launches()
+        hold_launches("ring", f"the {n}-step {c.compute_dtype} ring rollout", paths[path],
+                      collections.Counter({k: v * n for k, v in per_step.items()}))
+        check_rollout(f"[ring] {c.compute_dtype} rollout", preds, graph, n)
+        single = rollout(apply_msgnn, params, c, graph, n, device=device)
+        err0 = float((preds[..., 0] - single[..., 0]).abs().max())
+        top = float(single[..., 0].abs().max())
+        limit = 1e-5 * top if c is cfg32 else 2 * 2.0 ** -8 * top
+        rel_l2 = float((preds - single).norm() / single.norm())
+        log(f"[ring] {c.compute_dtype} rollout through {parts} parts vs one device: step 0 "
+            f"max|err| {err0:.3e} (limit {limit:.3e}), the {n} steps' relative L2 "
+            f"{rel_l2:.3e}" + (" (limit 1e-4)" if c is cfg32 else "")
+            + f"; max|pred| {top:.4f}")
+        if err0 > limit or (c is cfg32 and not rel_l2 <= 1e-4):
+            raise AssertionError(f"[ring] the {c.compute_dtype} ring rollout disagrees with "
+                                 "the single-device port")
+        out[f"{path}_step0_err"], out[f"{path}_rel_l2"] = err0, rel_l2
+        if c is cfg32:
+            out["step0_f32"] = preds[..., 0]
+    rollout_ms, event_ms, host_ms = timed_rollouts(ring_apply["bfloat16"], params, cfg, graph,
+                                                   steps, device)
+    out["rollout_ms"] = rollout_ms
+    log(f"[ring] {steps}-step bf16 ring rollout ({parts} parts, one card): {rollout_ms:.1f} "
+        f"ms median of 3 (CUDA events {', '.join(f'{x:.1f}' for x in event_ms)} ms; host "
+        f"clock {', '.join(f'{x:.1f}' for x in host_ms)} ms); "
+        f"{sum(per_step.values())} hop launches a step; (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (b) the train step through the ring: float32 gradients against one
+    # device, then the bf16 step counted and timed as phase 5's
+    step = build_bench_train_step(graph, cfg, params, ring_apply["bfloat16"], device=device)
+    with deterministic("ring"):
+        args = (step.params, cfg32, step.graph, step.rollout_steps, step.opts, True)
+        ring_grads = loss_and_grads(ring_apply["float32"], *args)
+        single_grads = loss_and_grads(apply_msgnn, *args)
+        # each leaf's rounding sensitivity: the single-device gradient with
+        # the inputs one float32 ulp up
+        nudged = graph.replace(x_dynamic=graph.x_dynamic * (1 + 2.0 ** -23))
+        nudged_grads = loss_and_grads(apply_msgnn, step.params, cfg32, nudged,
+                                      step.rollout_steps, step.opts, True)
+    r = hold_ring_grads(ring_grads, single_grads, nudged_grads, parts, step.rollout_steps)
+    check_first_grads("ring", *ring_grads)
+    expected = collections.Counter()
+    for (kernel, nd, ns), n in per_step.items():
+        expected[kernel, nd, ns] += 2 * n * step.rollout_steps
+        expected[kernel + "_bwd", nd, ns] += n * step.rollout_steps
+    paths["ring_train_step"], out["train_step_ms"], _, out["train_peak_gib"] = \
+        timed_train_steps("ring", step, expected)
+    out["train_grads_f32"] = r
+    log(f"[ring] (b) done {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (c) the overlap and width-2 plans: step 0 against (a)'s float32 step 0
+    for path, kw in (("ring_overlap_step", {"overlap": True}),
+                     ("ring_wide_step", {"halo_width": 2})):
+        dist = build_dist_msgnn_inputs(ring_graph, parts, **kw)
+        vplans = place_dist_inputs(dist, devices)
+        apply_fn = make_dist_apply_fn(devices, cfg32, graph, **kw)
+        reset_all_launches()
+        got = ring_step0(apply_fn, params, cfg32, graph)
+        torch.cuda.synchronize()
+        paths[path] = read_launches()
+        hold_launches("ring", f"one float32 step with {kw}", paths[path],
+                      ring_hops_per_step(cfg, vplans))
+        ref = out["step0_f32"]
+        err = (got - ref).abs()
+        bound_ = 2e-5 * ref.abs() + 1e-6 * float(ref.abs().max())
+        meta = {k: dist[k] for k in ("overlap", "overlap_pool", "overlap_unpool", "wide_meta")
+                if k in dist}
+        log(f"[ring] {kw}: {ring_layout(vplans)}; {meta}; step 0 vs (a): max|err| "
+            f"{float(err.max()):.3e} (limit 2e-5 |ref| + 1e-6 max|ref|)")
+        if not bool((err <= bound_).all()):
+            raise AssertionError(f"[ring] step 0 with {kw} disagrees with the per-hop plan")
+        out[f"{path}_err"] = float(err.max())
+        hold_ring_shapes(checks, path, vplans, paths[path])
+    for path in ("ring_serving", "ring_serving_f32", "ring_train_step"):
+        hold_ring_shapes(checks, path, plans, paths[path])
+    log(f"[ring] (c) and the holds done {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (d) configs/ring_halo.yaml through run_training, at its own width and
+    # corpus; at the config's 8 parts its coarse levels have no ring plan
+    # (the JAX package falls back to GSPMD there), and the port raises
+    with cli_workdir("smoke_ring_") as tmp:
+        cfg_yaml = cut_config("ring", RING_CONFIG, {("trainer_options", "batch_size"): 4})
+        full = config_lib.with_defaults(cfg_yaml)
+        n_graph = full["parallel"]["graph"]
+        try:
+            cli.run_training(copy.deepcopy(cfg_yaml), os.path.join(tmp, "at_config"),
+                             device=[torch.device("cuda", 0)] * n_graph)
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+        train = cli.prepare_data(full)[0]
+        template = prepare_ring_graphs(train[:1], n_graph)[0][0]
+        cli_parts = ring_parts(template, n_graph, overlap=bool(full["parallel"]["overlap"]))
+        if cli_parts != n_graph and raised is None:
+            raise AssertionError(f"[ring] run_training at {n_graph} parts ran without a plan")
+        log(f"[ring] run_training at the config's {n_graph} parts: "
+            + (f"raised as it must: {raised}" if raised else "ran"))
+        cfg_yaml["parallel"]["graph"] = cli_parts
+        log(f"[ring] cut: parallel.graph {n_graph} -> {cli_parts} (the largest count with a "
+            "ring plan on the config's own corpus)")
+        buf = io.StringIO()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summary = cli.run_training(cfg_yaml, os.path.join(tmp, "train"),
+                                       device=[torch.device("cuda", 0)] * cli_parts)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        paths["ring_cli_train"] = read_launches()
+        text = buf.getvalue()
+        history = read_json(os.path.join(tmp, "train", "best", "meta.json"))["history"]
+        launched = by_kernel(paths["ring_cli_train"])
+        if ("ring_halo: forcing batch_size=1" not in text
+                or f"{cli_parts}-way" not in text
+                or [h["epoch"] for h in history] != [0, 1]
+                or not all(math.isfinite(h["train_loss"]) for h in history)
+                or not all(math.isfinite(v) for v in summary.values())
+                or not (launched["hop"] and launched["hop_bwd"])):
+            raise AssertionError(f"[ring] run_training of {RING_CONFIG}: {text[-3000:]}")
+        cli_plans = place_dist_inputs(build_dist_msgnn_inputs(
+            prepare_ring_graphs(train[:1], cli_parts)[0][0].to(device), cli_parts,
+            overlap=bool(full["parallel"]["overlap"])), [torch.device("cuda", 0)] * cli_parts)
+        hold_ring_shapes(checks, "ring_cli_train", cli_plans, paths["ring_cli_train"])
+    log(f"[ring] {RING_CONFIG} (F={full['models']['hid_features']}, K={full['models']['K']}, "
+        f"overlap) over {cli_parts} parts: batch_size forced to 1, {cli_s:.1f} s in all; "
+        "epochs " + ", ".join(f"{h['epoch']} (train_loss {h['train_loss']:.6f}, "
+                              f"{h['epoch_time']:.2f} s)" for h in history)
+        + f"; test_CSI_005 {summary['test_CSI_005']:.4f}, test_MAE_WD "
+        f"{summary['test_MAE_WD']:.4f}; launched {launched}")
+    out.update(launches=paths, cli_parts=cli_parts, cli_epoch_s=[h["epoch_time"]
+                                                                   for h in history],
+               cli_raised=raised, plans=plans, cfg=cfg)
+    log(f"[ring] summary: {parts} parts, bf16 rollout {out['rollout_ms']:.1f} ms, bf16 train "
+        f"step {out['train_step_ms']:.1f} ms; {smi}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 def phase_timing(cases, flush, paths, checks, path_dtypes=None) -> dict:
     """Holds every case of ``timing_cases`` bit-equal to its plain version on
@@ -2124,6 +2577,7 @@ def main() -> None:
     cli = phase_cli(smi, checks)
     gnn = phase_gnn(smi, checks, sample)
     data = phase_data(smi, checks)
+    ring = phase_ring(smi, checks, sample, cfg, params)
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -2141,10 +2595,15 @@ def main() -> None:
     # the bench's scale 0, another dtype)
     cases += ell_timing_cases(gnn["cache"], gnn["spec"], set(), "gnn ", torch.float32)
     cases += band_timing_cases(gnn["banded"], "gnn plan", torch.float32)
+    # the ring path's partition shapes (phase 13), bf16 as its rollout
+    cases += ring_timing_cases(ring["plans"], cfg)
+    paths.update(ring["launches"])
     path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
                                  "gnn_train_step", "gnn_cli_train", "gnn_cli_eval",
                                  "data_cli_train", "data_cli_eval", "data_map_train",
-                                 "data_map_eval", "data_pickle_train"), "float32")
+                                 "data_map_eval", "data_pickle_train", "ring_serving_f32",
+                                 "ring_overlap_step", "ring_wide_step", "ring_cli_train"),
+                                "float32")
     timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
     kernels = [
@@ -2180,6 +2639,11 @@ def main() -> None:
         k["data_train_step_ms"] = data["train_step_ms"]
     for k in kernels[:2]:
         k["data_cli_epoch_s"] = {key: data[f"{key}_epoch_s"] for key in ("cli", "map", "pickle")}
+    kernels[0]["ring_rollout_ms"] = ring["rollout_ms"]
+    for k in kernels[:2]:
+        k["ring_parts"] = ring["parts"]
+        k["ring_train_step_ms"] = ring["train_step_ms"]
+        k["ring_cli_epoch_s"] = ring["cli_epoch_s"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

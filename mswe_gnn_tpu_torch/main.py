@@ -17,14 +17,20 @@ config says:
   group; grid or triangulated meshes, storm forcing), cached as ``.npz``
   under ``MSWE_DATA_CACHE`` (default ``runs/data_cache``).
 
-Not ported, and raising: ``sweep`` (wandb), more than one device (a
-``parallel`` block with data x graph > 1), and the report figures.
+A ``parallel: {mode: ring_halo, graph: P}`` block runs the MSGNN over P ring
+partitions (``parallel/``), one per entry of ``--device`` (a comma-separated
+list of P devices, which may repeat one; default: every visible GPU), from
+one process; samples and test graphs are ring-reordered, batches hold one
+graph. Not ported, and raising: ``sweep`` (wandb), the GSPMD data x graph
+sharding (``mode: gspmd`` with data x graph > 1), ``data`` > 1 under
+``ring_halo``, and the report figures.
 Checkpoints are the port's npz format (training/checkpoint.py); an orbax
 checkpoint of the JAX package is converted first (tests/torch_port_convert.py).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -34,6 +40,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from mswe_gnn_tpu_torch import config as config_lib
 from mswe_gnn_tpu_torch import resolve_device
@@ -46,6 +53,9 @@ from mswe_gnn_tpu_torch.data.synthetic import GENERATOR_VERSION, generate_datase
 from mswe_gnn_tpu_torch.data.torch_compat import load_reference_pickle
 from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
 from mswe_gnn_tpu_torch.models import build_model, count_params
+from mswe_gnn_tpu_torch.parallel.dist_swegnn import ring_plan_failure
+from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn, prepare_ring_graphs
+from mswe_gnn_tpu_torch.parallel.sharding import make_mesh
 from mswe_gnn_tpu_torch.training.checkpoint import restore_params_only, save_checkpoint
 from mswe_gnn_tpu_torch.training.rollout import rollout
 from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
@@ -314,12 +324,87 @@ def evaluate(apply_fn, model_cfg, params, test: List[FloodGraph],
     return analysis.summary()
 
 
-def _check_single_device(cfg: Dict) -> None:
+DATA_PARALLEL = ("the GSPMD data x graph sharding and data parallelism wait for the "
+                 "port's data-parallel slice (ROADMAP Queue 1, item 10)")
+
+
+def _device_list(device) -> Optional[List[torch.device]]:
+    """``--device`` as a list of devices: a comma-separated string, a
+    sequence, or one device; None stays None."""
+    if device is None:
+        return None
+    if isinstance(device, str):
+        device = [d.strip() for d in device.split(",") if d.strip()]
+    elif isinstance(device, (torch.device, int)):
+        device = [device]
+    return [torch.device(d) for d in device]
+
+
+def ring_devices(cfg: Dict, devices: Optional[List[torch.device]] = None
+                 ) -> Optional[List[torch.device]]:
+    """The partition devices of a ``parallel: {mode: ring_halo, graph: P}``
+    block (JAX main.py:388-426), or None for a single-device run.
+
+    ``devices`` lists the P devices (its length must be P; it may repeat
+    one); without it, ``sharding.make_mesh`` takes every visible GPU. Where the JAX
+    package falls back to its GSPMD path this raises: a model other than the
+    MSGNN, ``data`` > 1 under ``ring_halo``, and ``mode: gspmd`` with data x
+    graph > 1 (a failing ring plan raises in ``_ring_apply``). A device list
+    longer than one without a ring block raises too."""
     par = cfg.get("parallel") or {}
-    if int(par.get("data", 1)) * int(par.get("graph", 1)) > 1:
+    n_data, n_graph = int(par.get("data", 1)), int(par.get("graph", 1))
+    mode = par.get("mode", "gspmd")
+    if mode == "ring_halo" and n_graph > 1:
+        if n_data > 1:
+            raise NotImplementedError(f"parallel.data = {n_data} under ring_halo: "
+                                      f"{DATA_PARALLEL}")
+        if cfg["models"]["model_type"] != "MSGNN":
+            raise NotImplementedError(
+                f"ring_halo covers the MSGNN, not {cfg['models']['model_type']} (the JAX "
+                f"package falls back to GSPMD here): {DATA_PARALLEL}")
+        if devices is not None and len(devices) != n_graph:
+            raise ValueError(f"parallel.graph = {n_graph} ring partitions need {n_graph} "
+                             f"devices, --device lists {len(devices)}")
+        return make_mesh(1, n_graph, devices)[0]
+    if mode not in ("gspmd", "ring_halo"):
+        raise ValueError(f"parallel.mode {mode!r}: 'gspmd' or 'ring_halo'")
+    if n_data * n_graph > 1:
+        raise NotImplementedError(f"parallel: data x graph = {n_data * n_graph} in {mode} "
+                                  f"mode: {DATA_PARALLEL}; the port trains on one device "
+                                  "or over ring_halo partitions")
+    if devices is not None and len(devices) > 1:
+        raise ValueError(f"--device lists {len(devices)} devices, but the config has no "
+                         "parallel ring_halo block")
+    return None
+
+
+def _ring_data(n_parts: int, *splits) -> List[List[FloodGraph]]:
+    """Each split ring-reordered with one permutation (``prepare_ring_graphs``)."""
+    return [prepare_ring_graphs(split, n_parts)[0] for split in splits]
+
+
+def _ring_apply(cfg: Dict, model_cfg, template: FloodGraph, devices):
+    """The ring ``apply_fn`` of the config's ``parallel`` block over
+    ``devices``; raises, naming the plan, when the template is not
+    ring-adjacent at that many parts."""
+    par = cfg["parallel"]
+    kw = dict(overlap=bool(par.get("overlap", False)),
+              halo_width=int(par.get("halo_width", 1)))
+    apply_fn = make_dist_apply_fn(devices, model_cfg, template, **kw)
+    if apply_fn is None:
         raise NotImplementedError(
-            "parallel: data x graph > 1 needs the multi-GPU port (ROADMAP Queue 1, "
-            "item 10); the port trains on one device")
+            f"ring_halo at {len(devices)} parts: "
+            f"{ring_plan_failure(template, len(devices), **kw)} (the JAX package falls "
+            f"back to GSPMD here): {DATA_PARALLEL}; use fewer parts")
+    print(f"ring-halo graph parallelism: {len(devices)}-way over "
+          f"{', '.join(str(d) for d in devices)}")
+    return apply_fn
+
+
+def _eval_batch_size(cfg: Dict, ring) -> int:
+    """``eval_batch_size``, 1 under ring_halo: the plans hold one graph (JAX
+    main.py:491-496)."""
+    return 1 if ring else int(cfg["trainer_options"].get("eval_batch_size", 1))
 
 
 def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
@@ -328,10 +413,13 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
     test split -> the summary. With ``epoch_budget``, trains at most that
     many epochs in this call, autosaves and returns ``{"__resume__": True,
     "epoch": ...}`` while epochs remain; a later call resumes from
-    ``<out_dir>/autosave``."""
+    ``<out_dir>/autosave``. ``device`` is one device, or under a ring_halo
+    block the list of partition devices (``ring_devices``), the first of
+    which holds the parameters and the data."""
     cfg = config_lib.with_defaults(cfg)
-    _check_single_device(cfg)
-    device = resolve_device(device)
+    devices = _device_list(device)
+    ring = ring_devices(cfg, devices)
+    device = ring[0] if ring else resolve_device(devices and devices[0])
     logger = MetricLogger(out_dir, config=cfg)
     try:
         train, val, test, _, test_records = prepare_data(cfg)
@@ -346,6 +434,13 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
             print(f"warm-started from {cfg['saved_model']}")
 
         opts = trainer_options(cfg)
+        if ring:
+            train, val, test = _ring_data(len(ring), train, val, test)
+            apply_fn = _ring_apply(cfg, model_cfg, train[0], ring)
+            if opts.batch_size != 1:
+                # one partitioned graph a step: the plans are the template's
+                print("ring_halo: forcing batch_size=1")
+                opts = dataclasses.replace(opts, batch_size=1)
         autosave_dir = os.path.join(out_dir, "autosave")
         tr = Trainer(apply_fn, model_cfg, params, opts, train, val,
                      multiscale=cfg["models"]["model_type"] == "MSGNN",
@@ -372,9 +467,7 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
         summary = evaluate(apply_fn, model_cfg, tr.best_params, test,
                            numerical_times=[r.solver_seconds for r in test_records],
                            solver_label=_solver_label(cfg),
-                           eval_batch_size=int(cfg["trainer_options"].get(
-                               "eval_batch_size", 1)),
-                           device=device)
+                           eval_batch_size=_eval_batch_size(cfg, ring), device=device)
         summary["n_params"] = count_params(tr.best_params)
         logger.summary(summary)
     finally:
@@ -385,19 +478,24 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
 
 def run_eval(cfg: Dict, ckpt: str, out_dir: str, device=None) -> Dict:
     """Evaluate the checkpoint ``ckpt`` on the test split; writes
-    ``<out_dir>/summary.json`` -> the summary."""
+    ``<out_dir>/summary.json`` -> the summary. ``device`` as in
+    ``run_training``: under a ring_halo block the test graphs run through
+    the ring."""
     cfg = config_lib.with_defaults(cfg)
-    _check_single_device(cfg)
-    device = resolve_device(device)
+    devices = _device_list(device)
+    ring = ring_devices(cfg, devices)
+    device = ring[0] if ring else resolve_device(devices and devices[0])
     _, _, test, _, test_records = prepare_data(cfg)
     print(f"corpus: {len(test_records)} test records, sha256 {corpus_digest(test_records)}")
     model_cfg, params, apply_fn = build_experiment_model(cfg, test[0], device=device)
     params = restore_weights(ckpt, params)
+    if ring:
+        test, = _ring_data(len(ring), test)
+        apply_fn = _ring_apply(cfg, model_cfg, test[0], ring)
     summary = evaluate(apply_fn, model_cfg, params, test,
                        numerical_times=[r.solver_seconds for r in test_records],
                        solver_label=_solver_label(cfg),
-                       eval_batch_size=int(cfg["trainer_options"].get("eval_batch_size", 1)),
-                       device=device)
+                       eval_batch_size=_eval_batch_size(cfg, ring), device=device)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=float)
@@ -415,7 +513,9 @@ def main(argv=None) -> int:
                     help=f"max epochs in this process; exits {EXIT_RELAUNCH} when hit "
                          "(relaunch, and training resumes from the autosave)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the GPU; 'cpu' runs on the CPU)")
+                    help="torch device (default: the GPU; 'cpu' runs on the CPU); under a "
+                         "parallel ring_halo block, a comma-separated list of one device a "
+                         "partition (e.g. cuda:0,cuda:1 or cpu,cpu)")
     args = ap.parse_args(argv)
     cfg = config_lib.read_config(args.config) if args.config else {}
     cfg = config_lib.fix_dotted_keys(cfg)

@@ -1,6 +1,8 @@
 """The port's loader of the native mesh core (``native/meshcore.cpp`` and
 ``native/delaunay.cpp``, the constrained Delaunay engine), bound with
-``ctypes``: the three entry points that ``data/triangulate.py`` needs.
+``ctypes``: the three entry points that ``data/triangulate.py`` needs, and the
+BFS node partitioner of the ring-halo path (``bfs_partition``, with its
+numpy version ``bfs_partition_reference``).
 
 The library is compiled with ``g++`` at first use, with ``native/Makefile``'s
 own flags, into ``_build/`` beside the package (listed in ``.gitignore``),
@@ -72,6 +74,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.laplacian_smooth.restype = None
     lib.laplacian_smooth.argtypes = [
         f64p, ctypes.c_int64, i64p, ctypes.c_int64, u8p, ctypes.c_int64]
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.bfs_partition.restype = None
+    lib.bfs_partition.argtypes = [
+        i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i32p, i32p]
 
 
 def _check_index(idx: np.ndarray, n: int, width: int, what: str) -> None:
@@ -146,3 +152,56 @@ def laplacian_smooth(points: np.ndarray, triangles: np.ndarray, fixed: np.ndarra
         raise ValueError("fixed: expected one flag a point")
     lib.laplacian_smooth(pts, len(pts), tris.reshape(-1), len(tris), fx, int(iters))
     return pts
+
+
+def _edges(edge_index: np.ndarray, num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    ei = np.asarray(edge_index)
+    _check_index(np.ascontiguousarray(ei.T, dtype=np.int64), max(num_nodes, 1), 2,
+                 "edge_index")
+    return (np.ascontiguousarray(ei[0], dtype=np.int64),
+            np.ascontiguousarray(ei[1], dtype=np.int64))
+
+
+def bfs_partition(edge_index: np.ndarray, num_nodes: int, n_parts: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Locality-preserving node partition (JAX native.py:126-157, the
+    library's ``bfs_partition``): every node's BFS position over the directed
+    edges ``edge_index [2, E]`` (neighbours in edge order, a new search from
+    each unvisited node in id order) -> ``(owner, order)`` int32, ``order``
+    the new id of every node and ``owner`` its block of ``ceil(num_nodes /
+    n_parts)`` consecutive new ids. Contiguous blocks of this order are the
+    ring partitions of ``parallel/``."""
+    lib = load()
+    src, dst = _edges(edge_index, num_nodes)
+    owner = np.empty(num_nodes, np.int32)
+    order = np.empty(num_nodes, np.int32)
+    lib.bfs_partition(src, dst, len(src), num_nodes, n_parts, owner, order)
+    return owner, order
+
+
+def bfs_partition_reference(edge_index: np.ndarray, num_nodes: int, n_parts: int
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain numpy version of ``bfs_partition``: the JAX package's fallback
+    where its library is missing (the port's ``bfs_partition`` has none)."""
+    from collections import deque
+
+    src, dst = _edges(edge_index, num_nodes)
+    adj = [[] for _ in range(num_nodes)]
+    for s, d in zip(src.tolist(), dst.tolist()):
+        adj[s].append(d)
+    order = np.full(num_nodes, -1, np.int32)
+    nxt = 0
+    for seed in range(num_nodes):
+        if order[seed] != -1:
+            continue
+        order[seed] = nxt
+        nxt += 1
+        q = deque([seed])
+        while q:
+            for v in adj[q.popleft()]:
+                if order[v] == -1:
+                    order[v] = nxt
+                    nxt += 1
+                    q.append(v)
+    block = -(-num_nodes // n_parts)
+    return (order // block).astype(np.int32), order

@@ -265,3 +265,49 @@ def test_union_launch_counts_and_graph_rows(bench32):
         rows = cs.graph_rows(sample.spec, 4, g, "cpu")
         assert torch.equal(union.x_static[rows], sample.x_static)
         assert torch.equal(union.node_mask[rows], sample.node_mask)
+
+
+@pytest.fixture
+def one_thread():
+    """PyTorch on one thread for the test: the ring path's small ops take as
+    long on one thread alone and do not wait on oversubscribed thread pools
+    under the suite's parallel workers (tests/test_torch_port_parallel.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("kw", [{}, {"overlap": True}, {"halo_width": 2}],
+                         ids=["per_hop", "overlap", "wide"])
+def test_ring_launch_counts_are_the_ring_layers(bench32, monkeypatch, one_thread, kw):
+    """Phase 13's launch expectation (``ring_hops_per_step``) is what one ring
+    step of the bench model calls the hop with, by ``(Nd, Ns)``, on the
+    32x32 bench graph in 2 parts; every called shape has a plan table
+    (``ring_tables``), whose same-block flag says whether the call hopped
+    a block against itself."""
+    from mswe_gnn_tpu_torch.parallel import dist_swegnn
+    from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn
+
+    sample, _, cfg, params = bench32
+    graph, _ = dist_swegnn.reorder_graph_for_ring(sample, 2)
+    devices = ["cpu"] * 2
+    plans = dist_swegnn.place_dist_inputs(
+        dist_swegnn.build_dist_msgnn_inputs(graph, 2, **kw), [torch.device("cpu")] * 2)
+    calls, same = Counter(), set()
+    real = dist_swegnn.hop
+
+    def counting(dst, src, tab, s, **k):
+        calls["hop", dst.shape[0], src.shape[0]] += 1
+        if src is dst:
+            same.add((dst.shape[0], src.shape[0]))
+        return real(dst, src, tab, s, **k)
+
+    monkeypatch.setattr(dist_swegnn, "hop", counting)
+    with torch.no_grad():
+        make_dist_apply_fn(devices, cfg, graph, **kw)(params, cfg, cs.first_step(graph))
+    assert calls == cs.ring_hops_per_step(cfg, plans)
+    tables = cs.ring_tables(plans)
+    for _, nd, ns in calls:
+        assert all(flag == ((nd, ns) in same) for _, _, flag in tables[nd, ns])
+    assert bool(same) == ("overlap" in kw)
