@@ -39,7 +39,8 @@ Phases, each printing its own lines:
    floor of the harness, each launch (block, grid, registers, warps an
    SM), and the launches of each shape on each path as phases 4, 5, 7 and
    8 counted them, with their sum of launches x time; and the ELL hop and
-   its backward at phase 13's ring partition shapes, on part 0's tables.
+   its backward at phase 13's ring partition shapes, on part 0's tables,
+   and at phase 14's row-block shapes, on the first row's tables.
 7. batched serving -- the 47-step rollout on concat unions of 4 and of 20
    bench graphs (``concat_graphs``, no band plan): launches by shape held
    against the tiled spec's, the output checked as in phase 4, every
@@ -126,19 +127,43 @@ Phases, each printing its own lines:
    backward) and timed. (c) the overlap and width-2 plans: one float32 step against (a)'s step 0
    within 2e-5 |ref| + 1e-6 max|ref|, launches held. (d)
    ``configs/ring_halo.yaml`` through ``main.run_training`` at its own
-   width and corpus: at its 8 parts it has no ring plan and must raise;
-   then at the largest count with a plan (printed as a cut), its batch
-   size cut to 4 and forced back to 1, a finite history and summary, ELL
-   forward and backward launched. Every partition shape launched on (a)-(d)
-   held bit-equal to the plain versions on every part's table.
+   width and corpus at the largest count with a plan (printed as a cut;
+   at the config's own 8 parts the plan fails and the run falls back to
+   the GSPMD mesh: phase 14 (e)), its batch size cut to 4 and forced back
+   to 1, a finite history and summary, ELL forward and backward launched.
+   Every partition shape launched on (a)-(d) held bit-equal to the plain
+   versions on every part's table.
+14. mesh -- data x graph parallelism (``parallel/sharding.py``,
+   ``parallel/gspmd.py``), every entry of the mesh ``cuda:0``. (a) the bench
+   train step (bf16, remat, 6-step pushforward) on a 4 x 2 mesh, a stacked
+   batch of 4 distinct bench samples (``distinct_bench_samples``): each data
+   row one sample, its rows split over 2 blocks that hop against the
+   gathered state; its float32 loss and gradients against the one-device
+   step on the union of the 4 samples (``hold_ring_grads``' limits), then
+   the bf16 step counted by ``(kernel, Nd, Ns)`` against the row plans'
+   count (8 x 27 hops a model step) and timed as phase 8's; the placement a
+   trainer makes every step timed, the row models kept, and built anew. (b)
+   ``rollout_batch`` of the same batch over 47 steps on the mesh: launches
+   held, each graph against its own one-device rollout within two bf16 ulps
+   of its largest prediction, timed. (c) ``configs/multichip.yaml`` through
+   ``main train`` and ``main eval`` with ``--device`` 8 x ``cuda:0`` at its
+   own width (F=64, K=4, ``batch_layout: vmap``), only the epochs cut 20
+   -> 2; the eval summary the training one within 1e-5. (d) the same train
+   as two processes (``--dist-*``), each on 4 x ``cuda:0``, the backend
+   printed; both exit 0, process 0 writes every file, the history (c)'s
+   within 1e-5 ((c) and (d) under deterministic algorithms). (e) ring_halo at data 2 x graph 4 on the bench graph: step
+   0 bit-equal to data 1's; ``configs/ring_halo.yaml`` at its own 8 parts:
+   JAX's fallback line, then training on a 1 x 8 mesh. Every shape launched
+   on (a)-(e) held bit-equal to the plain versions on every table of it.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
 serving at batch 4 and 20, train step at batch 4, the CLI's train, eval and
 trained-weights eval, phase 11's rollout, train step, CLI train and eval
 and learned-pooling step, phase 12's forced rollout and train step and its
-CLI runs, and phase 13's ring rollouts, train step, plan variants and CLI
-run), each path counted from 0 just before it runs;
+CLI runs, phase 13's ring rollouts, train step, plan variants and CLI
+run, and phase 14's mesh train step, rollout, CLI train and eval, ring
+steps and fallback run), each path counted from 0 just before it runs;
 ``launches_by_path`` holds each path's own count, the figure to read for
 one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -1373,7 +1398,7 @@ def phase_trainer() -> dict:
         t0 = time.perf_counter()
         first.fit(max_epochs=2)
         fit_s = time.perf_counter() - t0
-        if not first._dev_plans:
+        if not any(stacked is not None for _, stacked, _ in first._resident.values()):
             raise AssertionError("the Trainer did not assemble its batches on the card")
         missing = [f for f in ("meta.json", "params.npz", "opt_state.npz", "heartbeat")
                    if not os.path.exists(os.path.join(ckpt, f))]
@@ -2130,19 +2155,24 @@ def ring_hops_per_step(cfg, plans) -> collections.Counter:
 
 
 def hold_ring_shapes(checks, path, plans, counts) -> dict:
+    """``hold_tables`` on the tables of placed ring plans (``ring_tables``)."""
+    return hold_tables(checks, "ring", path, ring_tables(plans), counts)
+
+
+def hold_tables(checks, phase, path, tables, counts) -> dict:
     """Each ``(kernel, Nd, Ns)`` that ``path`` launched (``counts``) held bit
     for bit against the plain versions, as phase 6 holds its cases: the ELL
     forward, and where the path ran it the backward, in float32 and bf16 and
-    every mode, on every part's table of that shape (random states with dry
-    rows, random flux zero on masked slots). Raises if a launched shape has
-    no table. -> the worst error by kernel."""
-    tables = ring_tables(plans)
+    every mode, on every table of that shape in ``tables`` (``(Nd, Ns) ->
+    [(slot table, slot mask, same_block)]``; random states with dry rows,
+    random flux zero on masked slots). Raises if a launched shape has no
+    table. -> the worst error by kernel."""
     launched = {key for key, n in counts.items() if n}
     worst = {"hop": 0.0, "hop_bwd": 0.0}
     held = set()
     for nd, ns in sorted({(nd, ns) for _, nd, ns in launched}):
         if (nd, ns) not in tables:
-            raise AssertionError(f"[ring] {path}: launched ({nd}, {ns}) has no plan table")
+            raise AssertionError(f"[{phase}] {path}: launched ({nd}, {ns}) has no plan table")
         backward = ("hop_bwd", nd, ns) in launched
         for i, (tab, mask, same) in enumerate(tables[nd, ns]):
             for dtype in DTYPES:
@@ -2155,7 +2185,7 @@ def hold_ring_shapes(checks, path, plans, counts) -> dict:
                 dst, src, s = (x.to("cuda", dtype) for x in (dst, src, s))
                 src = dst if same else src
                 args = (dst, src, tab.contiguous(), s.contiguous())
-                case = f"{path} ({nd}, {ns}) part table {i}"
+                case = f"{path} ({nd}, {ns}) table {i}"
                 out_table = hop_ops.out_slot_table(args[2], ns, mask)
                 up = upstream(5100 + nd, dst)
                 for mode, (grad, upw) in MODES.items():
@@ -2173,9 +2203,9 @@ def hold_ring_shapes(checks, path, plans, counts) -> dict:
         held |= {("hop", nd, ns)} | ({("hop_bwd", nd, ns)} if backward else set())
     missing = launched - held
     if missing:
-        raise AssertionError(f"[ring] {path}: launched shapes held nowhere: {sorted(missing)}")
-    log(f"[ring] {path}: every launched shape held bit-equal to the plain versions (float32 "
-        f"and bf16, 3 modes, every part's table): "
+        raise AssertionError(f"[{phase}] {path}: launched shapes held nowhere: {sorted(missing)}")
+    log(f"[{phase}] {path}: every launched shape held bit-equal to the plain versions (float32 "
+        f"and bf16, 3 modes, every table of the shape): "
         + ", ".join(f"({nd}, {ns}) x{len(tables[nd, ns])}"
                     + (" +bwd" if ("hop_bwd", nd, ns) in launched else "")
                     for nd, ns in sorted({(nd, ns) for _, nd, ns in launched})))
@@ -2186,11 +2216,20 @@ def ring_timing_cases(plans, cfg) -> list:
     """The ring path's ELL shapes for phase 6, bf16, on part 0's tables: each
     processor scale's hop and each level's un-pool hop, the backward at each
     (the ring train step runs both)."""
+    return partition_timing_cases(ring_hops_per_step(cfg, plans), ring_tables(plans),
+                                  ring_processor_keys(plans), "ring part", "ring table", 6000)
+
+
+def partition_timing_cases(per_step, tables, processor_keys, name, label, seed) -> list:
+    """Phase 6's cases at each ``(Nd, Ns)`` of ``per_step``, bf16, on the
+    first table of the shape: the forward (gradient mode for
+    ``processor_keys``, else the un-pool's no-gradient mode) and the
+    backward."""
     cases, nbytes = [], torch.tensor([], dtype=torch.bfloat16).element_size()
-    g = torch.Generator().manual_seed(6000)
-    for key, n in sorted(ring_hops_per_step(cfg, plans).items()):
+    g = torch.Generator().manual_seed(seed)
+    for key in sorted(per_step):
         _, nd, ns = key
-        tab, mask, same = ring_tables(plans)[nd, ns][0]
+        tab, mask, same = tables[nd, ns][0]
         dst = torch.randn(nd, FEAT, generator=g)
         dst[torch.rand(nd, generator=g) < 0.3] = 0.0
         src = torch.randn(ns, FEAT, generator=g)
@@ -2198,17 +2237,17 @@ def ring_timing_cases(plans, cfg) -> list:
         s = torch.randn(nd, tab.shape[1], FEAT, generator=g) * (mask.cpu() > 0)[..., None]
         dst, src, s = (x.to("cuda", torch.bfloat16) for x in (dst, src, s))
         args = (dst, dst if same else src, tab.contiguous(), s.contiguous())
-        grad = key in ring_processor_keys(plans)
-        name = f"ring part Nd={nd} Ns={ns} D={tab.shape[1]} F={FEAT} bf16 ring table"
+        grad = key in processor_keys
+        shape = f"{name} Nd={nd} Ns={ns} D={tab.shape[1]} F={FEAT} bf16 {label}"
         cases.append(timing_case(
-            "hop", name, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
+            "hop", shape, nd, ns, partial(hop_ops.hop, *args, with_gradient=grad),
             partial(hop_ops.hop_reference, *args, with_gradient=grad),
             hop_work(nd, ns, tab.shape[1], FEAT, nbytes, same, 4 if grad else 3),
             launch=launch_info(hop_ops._kernels(), torch.bfloat16, FEAT, nd)))
         table = hop_ops.out_slot_table(args[2], ns, mask)
-        up = upstream(6100 + nd, dst)
+        up = upstream(seed + 100 + nd, dst)
         cases.append(timing_case(
-            "hop_bwd", name, nd, ns, partial(hop_ops.hop_backward, *args, up, *table, grad),
+            "hop_bwd", shape, nd, ns, partial(hop_ops.hop_backward, *args, up, *table, grad),
             partial(hop_ops.hop_backward_reference, *args, up, *table, grad),
             hop_bwd_work(nd, ns, tab.shape[1], FEAT, nbytes, same, grad),
             table_bytes=table_bytes(table),
@@ -2255,7 +2294,8 @@ def ring_parts(graph, most, **kw) -> int:
     raise AssertionError(f"[ring] no ring plan at any part count from {most} down to 2")
 
 
-def hold_ring_grads(ring, single, nudged, parts, rollout_steps) -> dict:
+def hold_ring_grads(ring, single, nudged, parts, rollout_steps, phase="ring",
+                    through=None) -> dict:
     """The ring's float32 loss and gradients against the single-device
     port's. Limits: the loss within 1e-6 relative, cosine >= 0.9999999 and
     relative L2 <= 1e-6 over the whole tree, and every leaf within phase
@@ -2279,8 +2319,9 @@ def hold_ring_grads(ring, single, nudged, parts, rollout_steps) -> dict:
                     float((c - b).abs().max()))
         if d > 1e-4 * m + 1e-12:
             loose.append((n, d, m, dn))
-    log(f"[ring] float32 train step ({rollout_steps}-step pushforward, remat) through "
-        f"{parts} parts vs one device: loss rel diff {r['loss_rel']:.3e}, gradient cosine "
+    log(f"[{phase}] float32 train step ({rollout_steps}-step pushforward, remat) through "
+        f"{through or f'{parts} parts'} vs one device: loss rel diff {r['loss_rel']:.3e}, "
+        f"gradient cosine "
         f"{r['cos']:.9f}, relative L2 {r['rel']:.3e}, worst leaf max|diff|/max|leaf| "
         f"{r['worst_leaf']:.3e}; worst leaves "
         + "; ".join(f"{n} {q:.3e} (max|diff| {d:.3e}, max|leaf| {m:.3e})"
@@ -2291,8 +2332,9 @@ def hold_ring_grads(ring, single, nudged, parts, rollout_steps) -> dict:
         + " (limits: loss 1e-6, cosine 0.9999999, L2 1e-6, each leaf as the docstring)")
     if not (r["loss_rel"] <= 1e-6 and r["cos"] >= 0.9999999 and r["rel"] <= 1e-6
             and all(d <= dn for _, d, _, dn in loose)):
-        raise AssertionError("[ring] float32 ring train-step gradients disagree with the "
-                             "single-device port")
+        raise AssertionError(f"[{phase}] float32 train-step gradients through "
+                             f"{through or f'{parts} parts'} disagree with the single-device "
+                             "port")
     r["past_phase5_limit"] = loose
     return r
 
@@ -2426,25 +2468,16 @@ def phase_ring(smi, checks, sample, cfg, params) -> dict:
     log(f"[ring] (c) and the holds done {time.perf_counter() - t_phase:.1f} s into the phase")
 
     # (d) configs/ring_halo.yaml through run_training, at its own width and
-    # corpus; at the config's 8 parts its coarse levels have no ring plan
-    # (the JAX package falls back to GSPMD there), and the port raises
+    # corpus, at the largest part count with a ring plan (at the config's 8
+    # parts its coarse levels have none, and the run falls back to the GSPMD
+    # mesh as JAX does: phase 14 (e))
     with cli_workdir("smoke_ring_") as tmp:
         cfg_yaml = cut_config("ring", RING_CONFIG, {("trainer_options", "batch_size"): 4})
         full = config_lib.with_defaults(cfg_yaml)
         n_graph = full["parallel"]["graph"]
-        try:
-            cli.run_training(copy.deepcopy(cfg_yaml), os.path.join(tmp, "at_config"),
-                             device=[torch.device("cuda", 0)] * n_graph)
-            raised = None
-        except NotImplementedError as e:
-            raised = str(e)
         train = cli.prepare_data(full)[0]
         template = prepare_ring_graphs(train[:1], n_graph)[0][0]
         cli_parts = ring_parts(template, n_graph, overlap=bool(full["parallel"]["overlap"]))
-        if cli_parts != n_graph and raised is None:
-            raise AssertionError(f"[ring] run_training at {n_graph} parts ran without a plan")
-        log(f"[ring] run_training at the config's {n_graph} parts: "
-            + (f"raised as it must: {raised}" if raised else "ran"))
         cfg_yaml["parallel"]["graph"] = cli_parts
         log(f"[ring] cut: parallel.graph {n_graph} -> {cli_parts} (the largest count with a "
             "ring plan on the config's own corpus)")
@@ -2479,9 +2512,414 @@ def phase_ring(smi, checks, sample, cfg, params) -> dict:
         f"{summary['test_MAE_WD']:.4f}; launched {launched}")
     out.update(launches=paths, cli_parts=cli_parts, cli_epoch_s=[h["epoch_time"]
                                                                    for h in history],
-               cli_raised=raised, plans=plans, cfg=cfg)
+               plans=plans, cfg=cfg, graph=graph)
     log(f"[ring] summary: {parts} parts, bf16 rollout {out['rollout_ms']:.1f} ms, bf16 train "
         f"step {out['train_step_ms']:.1f} ms; {smi}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+MESH_SHAPE = (4, 2)
+MESH_CONFIG = "configs/multichip.yaml"
+MESH_BATCH = 4
+
+
+def distinct_bench_samples(sample, n):
+    """``n`` distinct graphs of the bench sample: graph i's dynamic features
+    scaled by ``1 + i / 8``, so that a replica reading another's graph
+    shows."""
+    return [sample.replace(x_dynamic=sample.x_dynamic * (1 + i / 8)) for i in range(n)]
+
+
+def mesh_plans(placed, cfg) -> list:
+    """The placed row plans (``gspmd.RowModel.plans``) of every row of a
+    ``MeshBatch`` with graphs, built at their first use."""
+    from mswe_gnn_tpu_torch.parallel.gspmd import row_model
+
+    return [row_model(r, cfg).plans for r in placed.rows if r.graph is not None]
+
+
+def mesh_tables(plans_list) -> dict:
+    """Every hop table of row plans, each part's, by ``(Nd, Ns)`` (the
+    layout of ``ring_tables``: every group reads the gathered state)."""
+    return ring_tables({"proc": [p for plans in plans_list for p in plans["proc"]],
+                        "unpool": [p for plans in plans_list for p in plans["unpool"]]})
+
+
+def mesh_hops_per_step(cfg, plans_list) -> collections.Counter:
+    """Hop launches of one model step over row plans by ``(kernel, Nd,
+    Ns)``: a processor layer of K hops launches its scale's hop on every
+    part of every row K times, an un-pool layer its level's hop once a
+    part."""
+    counts = collections.Counter()
+
+    def add(pl, n):
+        g = pl["groups"][0]
+        for tab, out_table in zip(g["tab"], g["out_table"]):
+            counts["hop", tab.shape[0], out_table[0].numel() - 1] += n
+
+    for plans in plans_list:
+        for k, scale in processor_layers(cfg):
+            add(plans["proc"][scale], k)
+        for pl in plans["unpool"]:
+            add(pl, cfg.intra_cfg().K)
+    return counts
+
+
+def mesh_processor_keys(plans_list) -> set:
+    return {("hop", t.shape[0], o[0].numel() - 1) for plans in plans_list
+            for pl in plans["proc"] for t, o in zip(pl["groups"][0]["tab"],
+                                                    pl["groups"][0]["out_table"])}
+
+
+def single_tables(cfg, params, graph) -> dict:
+    """The one-device hop tables of ``graph`` (its ``prepare_graph`` cache),
+    by ``(Nd, Ns)``: each scale's processor table (same block) and each
+    level's un-pool table."""
+    from mswe_gnn_tpu_torch.models import prepare_graph
+
+    with torch.no_grad():
+        cache = prepare_graph(params, cfg, graph).ell_cache
+    tables = collections.defaultdict(list)
+    for _, mask, srcs, _, _ in cache["scales"]:
+        tables[srcs.shape[0], srcs.shape[0]].append((srcs, mask, True))
+    for lvl, (_, mask, usrc, _) in enumerate(cache["unpools"]):
+        tables[usrc.shape[0], cache["scales"][lvl + 1][2].shape[0]].append((usrc, mask, False))
+    return tables
+
+
+def merge_tables(*tables) -> dict:
+    out = collections.defaultdict(list)
+    for t in tables:
+        for key, v in t.items():
+            out[key] += v
+    return out
+
+
+def mesh_cli_tables(cfg_yaml, ckpt, devices_per_row, most) -> dict:
+    """The hop tables a CLI run on a mesh launches: the row plans of unions
+    of 1 to ``most`` training samples split over ``devices_per_row``
+    devices (training and validation), and the one-device tables of a test
+    graph (the evaluation), with the weights of ``ckpt``."""
+    from mswe_gnn_tpu_torch import config as config_lib
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.parallel.gspmd import RowModel
+
+    full = config_lib.with_defaults(cfg_yaml)
+    train, _, test, _, _ = cli.prepare_data(full)
+    mcfg, params, _ = cli.build_experiment_model(full, test[0], device="cuda")
+    params = cli.restore_weights(ckpt, params)
+    devices = [torch.device("cuda", 0)] * devices_per_row
+    plans = [RowModel(mcfg, concat_graphs(train[:b]).to("cuda"), devices).plans
+             for b in range(1, most + 1)]
+    return merge_tables(mesh_tables(plans), single_tables(mcfg, params, test[0].to("cuda")))
+
+
+def time_mesh_placement(cfg, samples, mesh, placed) -> tuple:
+    """Host-clock ms (medians of 3, the card synchronized) of the placement a
+    ``Trainer`` makes every step on a mesh: ``place`` of the batch from its
+    resident stacked copy and ``row_model`` of every row, which finds the
+    model kept from ``placed`` (checked); and of the same with every row's
+    ``RowModel`` built anew -> ``(place_ms, plan_build_ms)``."""
+    import numpy as np
+
+    from mswe_gnn_tpu_torch.graph import stack_graphs
+    from mswe_gnn_tpu_torch.parallel.gspmd import RowModel, row_model
+    from mswe_gnn_tpu_torch.parallel.sharding import place
+
+    resident = stack_graphs(samples).to(mesh[0][0])
+    kept = [row_model(r, cfg) for r in placed.rows]
+
+    def once(build):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = place(resident, np.arange(len(samples)), mesh)
+        models = [RowModel(cfg, r.graph, r.devices) if build else row_model(r, cfg)
+                  for r in again.rows]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, models
+
+    hits = [once(False) for _ in range(3)]
+    if not all(m is k for _, models in hits for m, k in zip(models, kept)):
+        raise AssertionError("[mesh] a new placement of the same batch rebuilt a row model")
+    builds = [once(True) for _ in range(3)]
+    return (statistics.median(t for t, _ in hits), statistics.median(t for t, _ in builds))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def read_history(run_dir) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
+    """Data x graph parallelism on the card, every mesh entry ``cuda:0``:
+    (a) the bench train step on a 4 x 2 mesh, a stacked batch of 4 distinct
+    bench samples, its float32 loss and gradients against the one-device
+    step on their union, then counted and timed in bf16; (b) the 47-step
+    ``rollout_batch`` of the same batch on the mesh against each graph's
+    one-device rollout; (c) ``configs/multichip.yaml`` through ``main
+    train`` and ``eval``; (d) the same run as two processes; (e) ring_halo
+    at data 2 against data 1 on the bench graph, and
+    ``configs/ring_halo.yaml`` at its 8 parts falling back to the mesh.
+    Every launched shape held against the plain hop (into ``checks``)."""
+    import subprocess
+    import yaml
+
+    from mswe_gnn_tpu_torch import main as cli
+    from mswe_gnn_tpu_torch.bench_problem import BenchTrainStep
+    from mswe_gnn_tpu_torch.graph import concat_graphs, stack_graphs
+    from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn
+    from mswe_gnn_tpu_torch.parallel.sharding import make_mesh, shard_batch
+    from mswe_gnn_tpu_torch.training.rollout import rollout, rollout_batch
+    from mswe_gnn_tpu_torch.training.train import (TrainerOptions, clone_tree, loss_and_grads,
+                                                   make_optimizer)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    n_data, n_graph = MESH_SHAPE
+    mesh = make_mesh(n_data, n_graph, [dev] * (n_data * n_graph))
+    samples = distinct_bench_samples(sample, MESH_BATCH)
+    placed = shard_batch(stack_graphs(samples).to(dev), mesh)
+    plans = mesh_plans(placed, cfg)
+    per_step = mesh_hops_per_step(cfg, plans)
+    log(f"[mesh] {n_data} x {n_graph} mesh on {dev}: a stacked batch of {MESH_BATCH} distinct "
+        f"bench samples, rows {[r.index.tolist() for r in placed.rows]}, row blocks by scale "
+        + "; ".join("/".join(str(t.shape[0]) for t in pl["groups"][0]["tab"])
+                    for pl in plans[0]["proc"])
+        + f"; hop launches a model step {sum(per_step.values())} by (Nd, Ns) "
+        + ", ".join(f"({nd}, {ns}) x{n}" for (_, nd, ns), n in sorted(per_step.items())))
+    paths, out = {}, {}
+
+    # (a) the train step: float32 loss and gradients against one device,
+    # then the bf16 step counted and timed as phase 8's
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    opts = TrainerOptions(batch_size=MESH_BATCH, velocity_scaler=7.0, remat=True)
+    union = concat_graphs(samples).to(dev)
+    with deterministic("mesh"):
+        args = (clone_tree(params), cfg32)
+        mesh_grads = loss_and_grads(apply_fn, *args, placed, 6, opts, True)
+        single_grads = loss_and_grads(apply_fn, *args, union, 6, opts, True)
+        nudged = union.replace(x_dynamic=union.x_dynamic * (1 + 2.0 ** -23))
+        nudged_grads = loss_and_grads(apply_fn, *args, nudged, 6, opts, True)
+    out["train_grads_f32"] = hold_ring_grads(
+        mesh_grads, single_grads, nudged_grads, n_data * n_graph, 6, phase="mesh",
+        through=f"a {n_data} x {n_graph} mesh")
+    check_first_grads("mesh", *mesh_grads)
+    expected = collections.Counter()
+    for (kernel, nd, ns), n in per_step.items():
+        expected[kernel, nd, ns] += 2 * n * 6
+        expected[kernel + "_bwd", nd, ns] += n * 6
+    p = clone_tree(params)
+    optimizer = make_optimizer(opts, steps_per_epoch=1)
+    step = BenchTrainStep(apply_fn, cfg, p, placed, opts, optimizer, optimizer.init(p))
+    paths["mesh_train_step"], out["train_step_ms"], _, out["train_peak_gib"] = \
+        timed_train_steps("mesh", step, expected)
+    out["place_ms"], out["plan_build_ms"] = time_mesh_placement(cfg, samples, mesh, placed)
+    log(f"[mesh] the placement a trainer makes a step (place the batch, look up each row's "
+        f"model, kept across batches): {out['place_ms']:.2f} ms; with each row's model built "
+        f"anew: {out['plan_build_ms']:.2f} ms (host clock, medians of 3); "
+        f"(a) done {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (b) the batched rollout on the mesh against each graph's own rollout
+    steps = sample.y.shape[-1]
+    reset_all_launches()
+    preds = rollout_batch(apply_fn, params, cfg, placed, steps)
+    torch.cuda.synchronize()
+    paths["mesh_serving"] = read_launches()
+    hold_launches("mesh", f"the {steps}-step rollout_batch", paths["mesh_serving"],
+                  collections.Counter({k: v * steps for k, v in per_step.items()}))
+    errs = []
+    for i, g in enumerate(samples):
+        check_rollout(f"[mesh] graph {i} of the rollout_batch", preds[i], g.to(dev), steps)
+        own = rollout(apply_fn, params, cfg, g, steps, device=dev)
+        top = float(own.abs().max())
+        errs.append((float((preds[i][..., 0] - own[..., 0]).abs().max()),
+                     float((preds[i] - own).abs().max()), 2 * 2.0 ** -8 * top))
+    log(f"[mesh] rollout_batch of {MESH_BATCH} on the mesh vs each graph's one-device rollout "
+        "(step 0, all steps, limit two bf16 ulps of the graph's largest prediction): "
+        + "; ".join(f"graph {i} {a:.3e}, {b:.3e} (limit {lim:.3e})"
+                    for i, (a, b, lim) in enumerate(errs)))
+    if not all(b <= lim for _, b, lim in errs):
+        raise AssertionError("[mesh] a graph's rollout on the mesh disagrees with its own")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    event_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        rollout_batch(apply_fn, params, cfg, placed, steps)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    out["rollout_ms"] = statistics.median(event_ms)
+    log(f"[mesh] {steps}-step rollout_batch of {MESH_BATCH} on the mesh: "
+        f"{out['rollout_ms']:.1f} ms median of 3 (CUDA events "
+        f"{', '.join(f'{t:.1f}' for t in event_ms)} ms) -> "
+        f"{out['rollout_ms'] / 1e3 / MESH_BATCH:.4f} s a simulation; (b) done "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+    hold_tables(checks, "mesh", "mesh_train_step", mesh_tables(plans), paths["mesh_train_step"])
+    hold_tables(checks, "mesh", "mesh_serving", mesh_tables(plans), paths["mesh_serving"])
+
+    # (c) configs/multichip.yaml through the CLI on the 4 x 2 mesh of cuda:0
+    root = os.path.dirname(os.path.abspath(__file__))
+    devices = ",".join(["cuda:0"] * (n_data * n_graph))
+    with cli_workdir("smoke_mesh_") as tmp:
+        cfg_yaml = cut_config("mesh", MESH_CONFIG, {("trainer_options", "max_epochs"): 2})
+        cfg_path = os.path.join(tmp, "multichip.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg_yaml, f)
+        train_dir = os.path.join(tmp, "train")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        # deterministic algorithms here and in (d)'s processes: autograd's
+        # index_add otherwise adds by atomics, and Adam turns a last-bit
+        # difference in a near-zero gradient into a full step
+        with contextlib.redirect_stdout(buf), deterministic("mesh"):
+            paths["mesh_cli_train"] = cli_run(["train", "--config", cfg_path, "--out", train_dir,
+                                               "--device", devices])
+        cli_s = time.perf_counter() - t0
+        missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(train_dir, f))]
+        history = read_history(train_dir)
+        launched = by_kernel(paths["mesh_cli_train"])
+        if (missing or "device mesh: data=4 x graph=2" not in buf.getvalue()
+                or [r["epoch"] for r in history] != [0, 1]
+                or not all(math.isfinite(r["train_loss"]) for r in history)
+                or not (launched["hop"] and launched["hop_bwd"])):
+            raise AssertionError(f"[mesh] train of {MESH_CONFIG}: missing {missing}, history "
+                                 f"{history}, launched {launched}: {buf.getvalue()[-3000:]}")
+        paths["mesh_cli_eval"] = cli_run(["eval", "--config", cfg_path, "--ckpt",
+                                          os.path.join(train_dir, "best"), "--out",
+                                          os.path.join(tmp, "eval"), "--device", devices])
+        train_summary = read_json(os.path.join(train_dir, "summary.json"))
+        eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
+        worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
+                    if not is_timing_key(k))
+        if worst >= 1e-5:
+            raise AssertionError(f"[mesh] eval {eval_summary} != train {train_summary}")
+        out["cli_epoch_s"] = [r["epoch_time"] for r in history]
+        log(f"[mesh] {MESH_CONFIG} (F={cfg_yaml['models']['hid_features']}, "
+            f"K={cfg_yaml['models']['K']}, batch_layout vmap) on a 4 x 2 mesh of cuda:0: train "
+            f"{cli_s:.1f} s in all; epochs "
+            + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, "
+                        f"{r['epoch_time']:.2f} s)" for r in history)
+            + f"; every file written; eval of the new best: the training summary within "
+            f"{worst:.2e}; launched train {launched}, eval {by_kernel(paths['mesh_cli_eval'])}")
+        tables = mesh_cli_tables(cfg_yaml, os.path.join(train_dir, "best"), n_graph,
+                                 cfg_yaml["trainer_options"]["batch_size"])
+        for path in ("mesh_cli_train", "mesh_cli_eval"):
+            hold_tables(checks, "mesh", path, tables, paths[path])
+
+        # (d) the same run as two processes, each on cuda:0 (2 rows x 2)
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        port = free_port()
+        local = ",".join(["cuda:0"] * (n_data // 2 * n_graph))
+        t0 = time.perf_counter()
+        code = ("import sys, torch; torch.use_deterministic_algorithms(True, warn_only=True); "
+                "from mswe_gnn_tpu_torch.main import main; sys.exit(main(sys.argv[1:]))")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, "train", "--config", cfg_path,
+             "--out", os.path.join(tmp, "two"), "--device", local,
+             "--dist-coordinator", f"localhost:{port}", "--dist-num-processes", "2",
+             "--dist-process-id", str(pid)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=600)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        two_s = time.perf_counter() - t0
+        backends = [re.search(r"backend (\w+)", o) for o in outs]
+        if any(proc.returncode != 0 for proc in procs) or not all(backends):
+            raise AssertionError("[mesh] two-process train failed: "
+                                 + " | ".join(o[-2000:] for o in outs))
+        missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(tmp, "two", f))]
+        two = read_history(os.path.join(tmp, "two"))
+        diff = max(abs(a[k] - b[k]) for a, b in zip(history, two)
+                   for k in ("train_loss", "val_loss", "val_CSI_005"))
+        if missing or len(two) != len(history) or not diff < 1e-5:
+            raise AssertionError(f"[mesh] two processes: missing {missing}, history {two} vs "
+                                 f"{history}")
+        out["two_process"] = {"backend": backends[0].group(1), "seconds": two_s,
+                              "epoch_s": [r["epoch_time"] for r in two]}
+        log(f"[mesh] (d) two processes of main train, each on {local} (2 rows x 2): backend "
+            f"{backends[0].group(1)} (rank 1: {backends[1].group(1)}; the rule gives gloo "
+            f"with more ranks than cards), both exit 0 in {two_s:.1f} s, process 0 wrote every "
+            f"file; history vs (c) max|diff| {diff:.3e} (limit 1e-5); epochs "
+            + ", ".join(f"{r['epoch_time']:.2f} s" for r in two))
+
+    # (e) ring_halo at data 2 against data 1 on the bench graph, then
+    # ring_halo.yaml at its own 8 parts, which falls back to the mesh
+    ring_parts_ = ring_parts(ring_graph, 4)
+    step0 = {}
+    paths["mesh_ring_data2"] = collections.Counter()
+    for nd_ in (1, 2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            layout = cli.parallel_layout({"models": {"model_type": "MSGNN"}, "parallel": {
+                "mode": "ring_halo", "data": nd_, "graph": ring_parts_}}, [dev] * ring_parts_)
+        ring_apply = make_dist_apply_fn(layout.ring, cfg, ring_graph)
+        reset_all_launches()
+        step0[nd_] = ring_step0(ring_apply, params, cfg, ring_graph)
+        torch.cuda.synchronize()
+        paths["mesh_ring_data2"] += read_launches()
+        log(f"[mesh] ring_halo data={nd_} x graph={ring_parts_}: ring over "
+            f"{len(layout.ring)} devices, mesh {layout.mesh}; {buf.getvalue().strip() or '-'}")
+    if not torch.equal(step0[1], step0[2]):
+        raise AssertionError("[mesh] ring_halo at data 2 differs from data 1")
+    from mswe_gnn_tpu_torch.parallel.dist_swegnn import (build_dist_msgnn_inputs,
+                                                         place_dist_inputs)
+    hold_ring_shapes(checks, "mesh_ring_data2", place_dist_inputs(
+        build_dist_msgnn_inputs(ring_graph, ring_parts_), [dev] * ring_parts_),
+        paths["mesh_ring_data2"])
+    log(f"[mesh] ring_halo at data 2 x graph {ring_parts_}: step 0 bit-equal to data 1's")
+    with cli_workdir("smoke_mesh_ring_") as tmp:
+        cfg_yaml = cut_config("mesh", RING_CONFIG, {})
+        n_parts = cfg_yaml["parallel"]["graph"]
+        buf = io.StringIO()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summary = cli.run_training(copy.deepcopy(cfg_yaml), os.path.join(tmp, "train"),
+                                       device=[dev] * n_parts)
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t0
+        paths["mesh_ring_fallback"] = read_launches()
+        text = buf.getvalue()
+        history = read_history(os.path.join(tmp, "train"))
+        launched = by_kernel(paths["mesh_ring_fallback"])
+        if (cli.FALLBACK not in text or f"device mesh: data=1 x graph={n_parts}" not in text
+                or [r["epoch"] for r in history] != [0, 1]
+                or not all(math.isfinite(v) for v in summary.values())
+                or not (launched["hop"] and launched["hop_bwd"])):
+            raise AssertionError(f"[mesh] {RING_CONFIG} at {n_parts} parts: {text[-3000:]}")
+        tables = mesh_cli_tables(cfg_yaml, os.path.join(tmp, "train", "best"), n_parts,
+                                 cfg_yaml["trainer_options"]["batch_size"])
+        hold_tables(checks, "mesh", "mesh_ring_fallback", tables, paths["mesh_ring_fallback"])
+    out["ring_fallback_epoch_s"] = [r["epoch_time"] for r in history]
+    log(f"[mesh] {RING_CONFIG} at its {n_parts} parts: "
+        + next(line for line in text.splitlines() if "ring_halo at" in line)
+        + f"; printed JAX's line ({cli.FALLBACK!r}) and trained on a 1 x {n_parts} mesh in "
+        f"{fallback_s:.1f} s: epochs "
+        + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, {r['epoch_time']:.2f} s)"
+                    for r in history)
+        + f"; launched {launched}")
+    out.update(launches=paths, plans=plans, per_step=per_step)
+    log(f"[mesh] summary: bf16 train step {out['train_step_ms']:.1f} ms, rollout_batch "
+        f"{out['rollout_ms']:.1f} ms on the 4 x 2 mesh; {smi}; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2578,6 +3016,7 @@ def main() -> None:
     gnn = phase_gnn(smi, checks, sample)
     data = phase_data(smi, checks)
     ring = phase_ring(smi, checks, sample, cfg, params)
+    mesh_ = phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring["graph"])
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -2598,11 +3037,17 @@ def main() -> None:
     # the ring path's partition shapes (phase 13), bf16 as its rollout
     cases += ring_timing_cases(ring["plans"], cfg)
     paths.update(ring["launches"])
+    # the mesh path's row-block shapes (phase 14), bf16 as its train step
+    cases += partition_timing_cases(mesh_["per_step"], mesh_tables(mesh_["plans"]),
+                                    mesh_processor_keys(mesh_["plans"]), "mesh block",
+                                    "row table", 7000)
+    paths.update(mesh_["launches"])
     path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
                                  "gnn_train_step", "gnn_cli_train", "gnn_cli_eval",
                                  "data_cli_train", "data_cli_eval", "data_map_train",
                                  "data_map_eval", "data_pickle_train", "ring_serving_f32",
-                                 "ring_overlap_step", "ring_wide_step", "ring_cli_train"),
+                                 "ring_overlap_step", "ring_wide_step", "ring_cli_train",
+                                 "mesh_cli_train", "mesh_cli_eval", "mesh_ring_fallback"),
                                 "float32")
     timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
@@ -2644,6 +3089,12 @@ def main() -> None:
         k["ring_parts"] = ring["parts"]
         k["ring_train_step_ms"] = ring["train_step_ms"]
         k["ring_cli_epoch_s"] = ring["cli_epoch_s"]
+    kernels[0]["mesh_rollout_batch_ms"] = mesh_["rollout_ms"]
+    for k in kernels[:2]:
+        k["mesh_train_step_ms"] = mesh_["train_step_ms"]
+        k["mesh_place_ms"] = mesh_["place_ms"]
+        k["mesh_cli_epoch_s"] = mesh_["cli_epoch_s"]
+        k["mesh_two_process"] = mesh_["two_process"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

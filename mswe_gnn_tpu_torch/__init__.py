@@ -10,7 +10,10 @@ mesh core of ``native/``, built at first use (``native.py``). This package
 imports torch, numpy, ``yaml`` (the experiment configs) and the standard
 library only.
 
-Batches are disconnected unions of graphs (``graph.concat_graphs``).
+Batches are disconnected unions of graphs (``graph.concat_graphs``), or
+stacked batches folded into one (the vmap layout); a ``(data, graph)``
+device mesh spreads a batch's graphs over data rows and each row's node
+rows over its devices (``parallel/``), across processes too (``main``).
 
 Entry points (``main`` -- the ``train``/``eval`` CLI --,
 ``models.build_model``, ``training.rollout.rollout``,

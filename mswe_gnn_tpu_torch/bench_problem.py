@@ -37,14 +37,14 @@ import os
 import numpy as np
 
 from mswe_gnn_tpu_torch import config as config_lib
-from mswe_gnn_tpu_torch import resolve_device, tree_to
+from mswe_gnn_tpu_torch import resolve_device, tree_leaves, tree_to
 from mswe_gnn_tpu_torch.data.dataset import (
     SimulationRecord, fit_dataset_scalers, make_spec, process_record,
     to_temporal_samples,
 )
 from mswe_gnn_tpu_torch.data.simulate import random_dem_fn
 from mswe_gnn_tpu_torch.data.synthetic import add_storm_forcing, make_multiscale_grid
-from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
+from mswe_gnn_tpu_torch.graph import concat_graphs
 from mswe_gnn_tpu_torch.models.registry import build_model
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
 from mswe_gnn_tpu_torch.training.train import (Optimizer, TrainerOptions, clone_tree,
@@ -132,13 +132,14 @@ def build_pareto_gnn_model(sample, device=None, **overrides):
 
 @dataclasses.dataclass
 class BenchTrainStep:
-    """The train step of bench_training on one graph or a union; calling it
-    takes one step, updates ``params`` in place and returns the loss (a
-    tensor)."""
+    """The train step of bench_training on one graph, a union or a batch
+    placed on a mesh (``parallel.sharding.MeshBatch``); calling it takes one
+    step on the parameters' device, updates ``params`` in place and returns
+    the loss (a tensor)."""
     apply_fn: object
     cfg: object
     params: dict
-    graph: FloodGraph
+    graph: object
     opts: TrainerOptions
     optimizer: Optimizer
     opt_state: dict
@@ -150,7 +151,7 @@ class BenchTrainStep:
                                 apply_fn=self.apply_fn, cfg=self.cfg,
                                 rollout_steps=self.rollout_steps, opts=self.opts,
                                 multiscale=self.multiscale, optimizer=self.optimizer,
-                                device=self.graph.x_static.device)
+                                device=tree_leaves(self.params)[0].device)
         return loss
 
 

@@ -17,6 +17,7 @@ Padded entries:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -497,10 +498,10 @@ def concat_graphs(graphs) -> FloodGraph:
 def stack_graphs(graphs) -> FloodGraph:
     """Stack same-spec graphs along a new leading batch axis (JAX
     graph.py:567-580): every tensor field gains a ``[B]`` axis. A data
-    container here, the input of ``DeviceConcatPlan`` for a device-resident
-    dataset; it carries no ``ell_cache`` and no band plan (a union has
-    neither). The model does not take it: the vmap batch layout is not
-    ported."""
+    container, the input of ``DeviceConcatPlan`` for a device-resident
+    dataset, and the vmap layout's batch (``training/``, which folds it into
+    the union of its graphs); it carries no ``ell_cache`` and no band plan
+    (a union has neither)."""
     _check_batchable(graphs)
     stacked = {}
     for f in dataclasses.fields(FloodGraph):
@@ -644,3 +645,10 @@ class DeviceConcatPlan:
             unpool_mask=nodes(stacked.unpool_mask),
             spec=self.tiled, previous_t=stacked.previous_t, bc_kind=stacked.bc_kind,
             temporal_res=stacked.temporal_res, num_graphs=self.b)
+
+
+@functools.lru_cache(maxsize=32)
+def concat_plan(spec: GraphSpec, b: int) -> DeviceConcatPlan:
+    """The ``DeviceConcatPlan`` of ``b`` graphs of ``spec``, built once a
+    process (its host tables, and their copy on each device it ran on)."""
+    return DeviceConcatPlan(spec, b)

@@ -17,13 +17,41 @@ config says:
   group; grid or triangulated meshes, storm forcing), cached as ``.npz``
   under ``MSWE_DATA_CACHE`` (default ``runs/data_cache``).
 
-A ``parallel: {mode: ring_halo, graph: P}`` block runs the MSGNN over P ring
-partitions (``parallel/``), one per entry of ``--device`` (a comma-separated
-list of P devices, which may repeat one; default: every visible GPU), from
-one process; samples and test graphs are ring-reordered, batches hold one
-graph. Not ported, and raising: ``sweep`` (wandb), the GSPMD data x graph
-sharding (``mode: gspmd`` with data x graph > 1), ``data`` > 1 under
-``ring_halo``, and the report figures.
+A ``parallel: {mode, data, graph}`` block (JAX main.py:388-432) spreads the
+training over devices, listed by ``--device`` as a comma-separated list
+(which may repeat one device; default: every visible GPU):
+
+- ``mode: gspmd`` (the default) with data x graph > 1: a ``data x graph``
+  mesh filled row by row from the list (too few devices raise); each batch's
+  graphs go over the data rows, each row's union over its graph devices
+  (``parallel/sharding.py``, ``parallel/gspmd.py``);
+- ``mode: ring_halo`` with graph = P > 1: the MSGNN over P ring partitions
+  (``parallel/dist_swegnn.py``), one a device of a list of P; samples and
+  test graphs are ring-reordered, batches hold one graph. ``data`` > 1
+  gives the data = 1 result (JAX replicates the ring over ``data``; the
+  port runs it once). For another model, or where the ring plan fails, the
+  run falls back to the GSPMD mesh and says so, as JAX does.
+
+The test evaluation runs on the first device, as JAX's runs unsharded.
+
+Several processes train one run (JAX main.py:334-357): ``--dist-num-processes
+N --dist-process-id I [--dist-coordinator HOST:PORT]``, or ``MSWE_MULTIHOST=1``
+under ``torchrun`` (``env://``). Each process holds ``data / N`` rows of the
+mesh on its own devices (``--device`` lists one process's), builds the same
+corpus, and trains its share of every global batch; loss pieces and
+gradients are all-reduced. Only process 0 writes logs, checkpoints and the
+summary; the others wait for it at the end. On a relaunch process 0 resumes
+from its autosave and hands its whole state to the others
+(``Trainer.sync_from_main``), so they need not share its directory. The
+processes of one host are counted by ``--dist-local-rank`` /
+``--dist-local-world`` or ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; without
+them the run is taken to be on one host. The backend (printed) is NCCL when
+the process runs on CUDA devices and its host has a card for every local
+rank, else gloo: the CPU, or more ranks than cards, since NCCL refuses two
+ranks on one card. A failed ``init_process_group`` or collective ends the
+run with an error; nothing switches backend.
+
+Not ported, and raising: ``sweep`` (wandb) and the report figures.
 Checkpoints are the port's npz format (training/checkpoint.py); an orbax
 checkpoint of the JAX package is converted first (tests/torch_port_convert.py).
 """
@@ -37,7 +65,7 @@ import math
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +83,7 @@ from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs
 from mswe_gnn_tpu_torch.models import build_model, count_params
 from mswe_gnn_tpu_torch.parallel.dist_swegnn import ring_plan_failure
 from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn, prepare_ring_graphs
-from mswe_gnn_tpu_torch.parallel.sharding import make_mesh
+from mswe_gnn_tpu_torch.parallel.sharding import make_mesh, process_index
 from mswe_gnn_tpu_torch.training.checkpoint import restore_params_only, save_checkpoint
 from mswe_gnn_tpu_torch.training.rollout import rollout
 from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
@@ -324,8 +352,7 @@ def evaluate(apply_fn, model_cfg, params, test: List[FloodGraph],
     return analysis.summary()
 
 
-DATA_PARALLEL = ("the GSPMD data x graph sharding and data parallelism wait for the "
-                 "port's data-parallel slice (ROADMAP Queue 1, item 10)")
+FALLBACK = "ring_halo unavailable (non-MSGNN model or ring plan failure); falling back to GSPMD"
 
 
 def _device_list(device) -> Optional[List[torch.device]]:
@@ -340,42 +367,55 @@ def _device_list(device) -> Optional[List[torch.device]]:
     return [torch.device(d) for d in device]
 
 
-def ring_devices(cfg: Dict, devices: Optional[List[torch.device]] = None
-                 ) -> Optional[List[torch.device]]:
-    """The partition devices of a ``parallel: {mode: ring_halo, graph: P}``
-    block (JAX main.py:388-426), or None for a single-device run.
+@dataclasses.dataclass
+class Layout:
+    """Where a run trains: ``ring`` the ring-halo partition devices, else
+    ``mesh`` (``sharding.make_mesh``), else one ``device``; ``home`` holds
+    the parameters and evaluates."""
+    home: torch.device
+    ring: Optional[List[torch.device]] = None
+    mesh: Optional[List[List[torch.device]]] = None
 
-    ``devices`` lists the P devices (its length must be P; it may repeat
-    one); without it, ``sharding.make_mesh`` takes every visible GPU. Where the JAX
-    package falls back to its GSPMD path this raises: a model other than the
-    MSGNN, ``data`` > 1 under ``ring_halo``, and ``mode: gspmd`` with data x
-    graph > 1 (a failing ring plan raises in ``_ring_apply``). A device list
-    longer than one without a ring block raises too."""
+
+def _mesh(n_data: int, n_graph: int, devices) -> List[List[torch.device]]:
+    mesh = make_mesh(n_data, n_graph, devices)
+    print(f"device mesh: data={n_data} x graph={n_graph}; this process's rows "
+          + " | ".join(", ".join(str(d) for d in row) for row in mesh))
+    return mesh
+
+
+def parallel_layout(cfg: Dict, devices: Optional[List[torch.device]] = None) -> Layout:
+    """The devices of the config's ``parallel`` block (JAX main.py:388-432):
+    a ring_halo block with graph > 1 gives its ring (``devices`` lists its P
+    parts; ``data`` is not replicated), a model other than the MSGNN falls
+    back to the GSPMD mesh (printing JAX's line), ``gspmd`` with data x
+    graph > 1 gives the mesh; otherwise one device. A list of more than one
+    device without a parallel block raises, and so do too few devices."""
     par = cfg.get("parallel") or {}
     n_data, n_graph = int(par.get("data", 1)), int(par.get("graph", 1))
     mode = par.get("mode", "gspmd")
-    if mode == "ring_halo" and n_graph > 1:
-        if n_data > 1:
-            raise NotImplementedError(f"parallel.data = {n_data} under ring_halo: "
-                                      f"{DATA_PARALLEL}")
-        if cfg["models"]["model_type"] != "MSGNN":
-            raise NotImplementedError(
-                f"ring_halo covers the MSGNN, not {cfg['models']['model_type']} (the JAX "
-                f"package falls back to GSPMD here): {DATA_PARALLEL}")
-        if devices is not None and len(devices) != n_graph:
-            raise ValueError(f"parallel.graph = {n_graph} ring partitions need {n_graph} "
-                             f"devices, --device lists {len(devices)}")
-        return make_mesh(1, n_graph, devices)[0]
     if mode not in ("gspmd", "ring_halo"):
         raise ValueError(f"parallel.mode {mode!r}: 'gspmd' or 'ring_halo'")
+    if mode == "ring_halo" and n_graph > 1:
+        if process_index()[1] > 1:
+            raise ValueError("ring_halo runs in one process; launch one, or use mode: gspmd")
+        if cfg["models"]["model_type"] == "MSGNN":
+            if devices is not None and len(devices) != n_graph:
+                raise ValueError(f"parallel.graph = {n_graph} ring partitions need {n_graph} "
+                                 f"devices, --device lists {len(devices)}")
+            if n_data > 1:
+                print(f"ring_halo: parallel.data = {n_data} runs the ring once (JAX "
+                      "replicates it over data: the same result)")
+            ring = make_mesh(1, n_graph, devices)[0]
+            return Layout(home=ring[0], ring=ring)
+        print(FALLBACK)
     if n_data * n_graph > 1:
-        raise NotImplementedError(f"parallel: data x graph = {n_data * n_graph} in {mode} "
-                                  f"mode: {DATA_PARALLEL}; the port trains on one device "
-                                  "or over ring_halo partitions")
+        mesh = _mesh(n_data, n_graph, devices)
+        return Layout(home=mesh[0][0], mesh=mesh)
     if devices is not None and len(devices) > 1:
         raise ValueError(f"--device lists {len(devices)} devices, but the config has no "
-                         "parallel ring_halo block")
-    return None
+                         "parallel ring_halo block or GSPMD mesh that uses them")
+    return Layout(home=resolve_device(devices and devices[0]))
 
 
 def _ring_data(n_parts: int, *splits) -> List[List[FloodGraph]]:
@@ -385,19 +425,34 @@ def _ring_data(n_parts: int, *splits) -> List[List[FloodGraph]]:
 
 def _ring_apply(cfg: Dict, model_cfg, template: FloodGraph, devices):
     """The ring ``apply_fn`` of the config's ``parallel`` block over
-    ``devices``; raises, naming the plan, when the template is not
+    ``devices``, or None (printing why) when the template is not
     ring-adjacent at that many parts."""
     par = cfg["parallel"]
     kw = dict(overlap=bool(par.get("overlap", False)),
               halo_width=int(par.get("halo_width", 1)))
     apply_fn = make_dist_apply_fn(devices, model_cfg, template, **kw)
     if apply_fn is None:
-        raise NotImplementedError(
-            f"ring_halo at {len(devices)} parts: "
-            f"{ring_plan_failure(template, len(devices), **kw)} (the JAX package falls "
-            f"back to GSPMD here): {DATA_PARALLEL}; use fewer parts")
+        print(f"ring_halo at {len(devices)} parts: "
+              f"{ring_plan_failure(template, len(devices), **kw)}")
+        return None
     print(f"ring-halo graph parallelism: {len(devices)}-way over "
           f"{', '.join(str(d) for d in devices)}")
+    return apply_fn
+
+
+def _ring_or_mesh(cfg: Dict, layout: Layout, model_cfg, template: FloodGraph,
+                  devices) -> Optional[Callable]:
+    """The ring ``apply_fn`` for a ring layout, built on the ring-reordered
+    ``template``; where the plan fails, the layout falls back to the GSPMD
+    mesh in place (JAX main.py:415-418) and this returns None."""
+    apply_fn = _ring_apply(cfg, model_cfg, prepare_ring_graphs([template], len(layout.ring))[0][0],
+                           layout.ring)
+    if apply_fn is None:
+        print(FALLBACK)
+        par = cfg["parallel"]
+        layout.ring = None
+        layout.mesh = _mesh(int(par.get("data", 1)), int(par.get("graph", 1)), devices)
+        layout.home = layout.mesh[0][0]
     return apply_fn
 
 
@@ -407,71 +462,102 @@ def _eval_batch_size(cfg: Dict, ring) -> int:
     return 1 if ring else int(cfg["trainer_options"].get("eval_batch_size", 1))
 
 
+def _barrier() -> None:
+    """All processes meet here (JAX main.py:465-476, 500-504): none exits
+    while process 0 still writes and evaluates."""
+    if process_index()[1] > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
                  device=None) -> Dict:
     """Train, save ``best`` and ``last``, evaluate the best parameters on the
     test split -> the summary. With ``epoch_budget``, trains at most that
     many epochs in this call, autosaves and returns ``{"__resume__": True,
     "epoch": ...}`` while epochs remain; a later call resumes from
-    ``<out_dir>/autosave``. ``device`` is one device, or under a ring_halo
-    block the list of partition devices (``ring_devices``), the first of
-    which holds the parameters and the data."""
+    ``<out_dir>/autosave``. ``device`` is one device, or under a parallel
+    block the list of devices (``parallel_layout``), the first of which
+    holds the parameters and the data. Across processes only process 0
+    writes and evaluates; the others return ``{"non_main_process": True,
+    ...}``."""
     cfg = config_lib.with_defaults(cfg)
     devices = _device_list(device)
-    ring = ring_devices(cfg, devices)
-    device = ring[0] if ring else resolve_device(devices and devices[0])
-    logger = MetricLogger(out_dir, config=cfg)
+    rank, world = process_index()
+    is_main = rank == 0
+    if world > 1:
+        print(f"multi-process: process {rank}/{world}")
+    layout = parallel_layout(cfg, devices)
+    if world > 1 and layout.home.type == "cuda":
+        torch.cuda.set_device(layout.home)       # the device NCCL's barriers use
+    logger = MetricLogger(out_dir, config=cfg) if is_main else None
     try:
         train, val, test, _, test_records = prepare_data(cfg)
         print(f"dataset: {len(train)} train / {len(val)} val / {len(test)} test samples")
         print(f"corpus: {len(test_records)} test records, sha256 "
               f"{corpus_digest(test_records)}")
-        model_cfg, params, apply_fn = build_experiment_model(cfg, train[0], device=device)
+        opts = trainer_options(cfg)
+        model_cfg, params, apply_fn = build_experiment_model(cfg, train[0], device=layout.home)
+        if layout.ring:
+            ring_apply = _ring_or_mesh(cfg, layout, model_cfg, train[0], devices)
+            if ring_apply is not None:
+                train, val, test = _ring_data(len(layout.ring), train, val, test)
+                apply_fn = ring_apply
+                if opts.batch_size != 1:
+                    # one partitioned graph a step: the plans are the template's
+                    print("ring_halo: forcing batch_size=1")
+                    opts = dataclasses.replace(opts, batch_size=1)
         print(f"model: {cfg['models']['model_type']}, {count_params(params)} params, "
-              f"on {device}")
+              f"on {layout.home}")
         if cfg.get("saved_model"):
             params = restore_weights(cfg["saved_model"], params)
             print(f"warm-started from {cfg['saved_model']}")
 
-        opts = trainer_options(cfg)
-        if ring:
-            train, val, test = _ring_data(len(ring), train, val, test)
-            apply_fn = _ring_apply(cfg, model_cfg, train[0], ring)
-            if opts.batch_size != 1:
-                # one partitioned graph a step: the plans are the template's
-                print("ring_halo: forcing batch_size=1")
-                opts = dataclasses.replace(opts, batch_size=1)
         autosave_dir = os.path.join(out_dir, "autosave")
         tr = Trainer(apply_fn, model_cfg, params, opts, train, val,
                      multiscale=cfg["models"]["model_type"] == "MSGNN",
-                     log_fn=logger.log, checkpoint_dir=autosave_dir,
+                     log_fn=logger.log if logger else None,
+                     checkpoint_dir=autosave_dir if is_main else None,
                      batch_layout=cfg["trainer_options"].get("batch_layout", "concat"),
-                     device=device)
-        if os.path.exists(os.path.join(autosave_dir, "meta.json")):
+                     mesh=layout.mesh, device=layout.home)
+        # process 0 resumes from its autosave, and hands its state to the others
+        if is_main and os.path.exists(os.path.join(autosave_dir, "meta.json")):
             print(f"resumed from epoch {tr.resume(autosave_dir)}")
+        if world > 1:
+            tr.sync_from_main()
 
         stop_at = (opts.max_epochs if epoch_budget is None
                    else min(opts.max_epochs, tr.start_epoch + epoch_budget))
         tr.fit(max_epochs=stop_at)
         reached = (int(tr.history[-1]["epoch"]) + 1) if tr.history else tr.start_epoch
-        tr.save(autosave_dir, reached)
+        if is_main:
+            tr.save(autosave_dir, reached)
         if reached >= stop_at and stop_at < opts.max_epochs:
             print(f"epoch budget exhausted at {reached}/{opts.max_epochs}; "
                   "relaunch to continue")
             return {"__resume__": True, "epoch": reached}
-
-        save_checkpoint(os.path.join(out_dir, "best"), tr.best_params,
-                        epoch=len(tr.history), history=tr.history)
-        save_checkpoint(os.path.join(out_dir, "last"), tr.params,
-                        epoch=len(tr.history), history=tr.history)
-        summary = evaluate(apply_fn, model_cfg, tr.best_params, test,
-                           numerical_times=[r.solver_seconds for r in test_records],
-                           solver_label=_solver_label(cfg),
-                           eval_batch_size=_eval_batch_size(cfg, ring), device=device)
-        summary["n_params"] = count_params(tr.best_params)
-        logger.summary(summary)
+        _barrier()                                  # every process trained every step
+        if not is_main:
+            _barrier()                              # process 0 has evaluated
+            return {"non_main_process": True, "epochs": reached}
+        try:
+            save_checkpoint(os.path.join(out_dir, "best"), tr.best_params,
+                            epoch=len(tr.history), history=tr.history)
+            save_checkpoint(os.path.join(out_dir, "last"), tr.params,
+                            epoch=len(tr.history), history=tr.history)
+            summary = evaluate(apply_fn, model_cfg, tr.best_params, test,
+                               numerical_times=[r.solver_seconds for r in test_records],
+                               solver_label=_solver_label(cfg),
+                               eval_batch_size=_eval_batch_size(cfg, layout.ring),
+                               device=layout.home)
+            summary["n_params"] = count_params(tr.best_params)
+            logger.summary(summary)
+        finally:
+            _barrier()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     print(json.dumps(summary, indent=2, default=float))
     return summary
 
@@ -480,27 +566,78 @@ def run_eval(cfg: Dict, ckpt: str, out_dir: str, device=None) -> Dict:
     """Evaluate the checkpoint ``ckpt`` on the test split; writes
     ``<out_dir>/summary.json`` -> the summary. ``device`` as in
     ``run_training``: under a ring_halo block the test graphs run through
-    the ring."""
+    the ring; under a GSPMD mesh the evaluation runs on its first device."""
     cfg = config_lib.with_defaults(cfg)
     devices = _device_list(device)
-    ring = ring_devices(cfg, devices)
-    device = ring[0] if ring else resolve_device(devices and devices[0])
+    layout = parallel_layout(cfg, devices)
     _, _, test, _, test_records = prepare_data(cfg)
     print(f"corpus: {len(test_records)} test records, sha256 {corpus_digest(test_records)}")
-    model_cfg, params, apply_fn = build_experiment_model(cfg, test[0], device=device)
+    model_cfg, params, apply_fn = build_experiment_model(cfg, test[0], device=layout.home)
     params = restore_weights(ckpt, params)
-    if ring:
-        test, = _ring_data(len(ring), test)
-        apply_fn = _ring_apply(cfg, model_cfg, test[0], ring)
+    if layout.ring:
+        ring_apply = _ring_or_mesh(cfg, layout, model_cfg, test[0], devices)
+        if ring_apply is not None:
+            test, = _ring_data(len(layout.ring), test)
+            apply_fn = ring_apply
     summary = evaluate(apply_fn, model_cfg, params, test,
                        numerical_times=[r.solver_seconds for r in test_records],
                        solver_label=_solver_label(cfg),
-                       eval_batch_size=_eval_batch_size(cfg, ring), device=device)
+                       eval_batch_size=_eval_batch_size(cfg, layout.ring), device=layout.home)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=float)
     print(json.dumps(summary, indent=2, default=float))
     return summary
+
+
+def dist_backend(devices: Optional[List[torch.device]], local_world: int) -> str:
+    """NCCL when this process runs on CUDA devices (``devices``, default the
+    GPUs) and its host has a card for each of its ``local_world`` ranks;
+    gloo otherwise: on the CPU, or with more ranks than cards (NCCL refuses
+    two ranks on one card)."""
+    on_cpu = devices is not None and all(d.type == "cpu" for d in devices)
+    if on_cpu or torch.cuda.device_count() < local_world:
+        return "gloo"
+    return "nccl"
+
+
+def init_distributed(args) -> bool:
+    """Join this process to the run's process group before any device is
+    touched (JAX main.py:334-357) -> whether it did: ``--dist-num-processes N
+    --dist-process-id I [--dist-coordinator HOST:PORT]`` (default
+    ``localhost:12355``), or ``MSWE_MULTIHOST=1`` with ``torchrun``'s
+    environment (``env://``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``).
+
+    The rank among the host's processes and their count pick the default
+    devices (``sharding.make_mesh``) and the backend (``dist_backend``):
+    ``--dist-local-rank`` / ``--dist-local-world``, else ``LOCAL_RANK`` /
+    ``LOCAL_WORLD_SIZE``, else the global rank and process count, which
+    holds for one host. The local rank is exported as ``LOCAL_RANK``, as
+    torchrun does. The backend is printed; a failure raises."""
+    import torch.distributed as dist
+
+    if args.dist_num_processes:
+        world, rank = args.dist_num_processes, args.dist_process_id or 0
+        init = f"tcp://{args.dist_coordinator or 'localhost:12355'}"
+    elif os.environ.get("MSWE_MULTIHOST") == "1":
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        init = "env://"
+    else:
+        return False
+
+    def local(flag, env, default) -> int:
+        return int(flag if flag is not None else os.environ.get(env, default))
+
+    local_rank = local(args.dist_local_rank, "LOCAL_RANK", rank)
+    local_world = local(args.dist_local_world, "LOCAL_WORLD_SIZE", world)
+    os.environ["LOCAL_RANK"] = str(local_rank)
+    devices = _device_list(args.device)
+    backend = dist_backend(devices, local_world)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    print(f"process group: rank {rank} of {world} (local {local_rank} of {local_world}), "
+          f"backend {backend}", flush=True)
+    return True
 
 
 def main(argv=None) -> int:
@@ -514,21 +651,40 @@ def main(argv=None) -> int:
                          "(relaunch, and training resumes from the autosave)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the CPU); under a "
-                         "parallel ring_halo block, a comma-separated list of one device a "
-                         "partition (e.g. cuda:0,cuda:1 or cpu,cpu)")
+                         "parallel block, a comma-separated list of this process's devices, "
+                         "which may repeat one (e.g. cuda:0,cuda:1 or cpu,cpu)")
+    ap.add_argument("--dist-coordinator", default=None,
+                    help="HOST:PORT of process 0 for a multi-process run "
+                         "(default localhost:12355)")
+    ap.add_argument("--dist-num-processes", type=int, default=None,
+                    help="processes in the run; starts torch.distributed")
+    ap.add_argument("--dist-process-id", type=int, default=None)
+    ap.add_argument("--dist-local-rank", type=int, default=None,
+                    help="this process's rank among its host's (default LOCAL_RANK, else the "
+                         "process id: one host)")
+    ap.add_argument("--dist-local-world", type=int, default=None,
+                    help="the processes on this host (default LOCAL_WORLD_SIZE, else "
+                         "--dist-num-processes: one host)")
     args = ap.parse_args(argv)
-    cfg = config_lib.read_config(args.config) if args.config else {}
-    cfg = config_lib.fix_dotted_keys(cfg)
-    if args.mode == "sweep":
-        raise NotImplementedError("sweep mode (a wandb sweep agent) is not ported")
-    if args.mode == "train":
-        result = run_training(cfg, args.out, epoch_budget=args.epoch_budget,
-                              device=args.device)
-        return EXIT_RELAUNCH if result.get("__resume__") else 0
-    if not args.ckpt:
-        ap.error("--ckpt is required for eval")
-    run_eval(cfg, args.ckpt, args.out, device=args.device)
-    return 0
+    distributed = init_distributed(args)
+    try:
+        cfg = config_lib.read_config(args.config) if args.config else {}
+        cfg = config_lib.fix_dotted_keys(cfg)
+        if args.mode == "sweep":
+            raise NotImplementedError("sweep mode (a wandb sweep agent) is not ported")
+        if args.mode == "train":
+            result = run_training(cfg, args.out, epoch_budget=args.epoch_budget,
+                                  device=args.device)
+            return EXIT_RELAUNCH if result.get("__resume__") else 0
+        if not args.ckpt:
+            ap.error("--ckpt is required for eval")
+        run_eval(cfg, args.ckpt, args.out, device=args.device)
+        return 0
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -694,6 +694,26 @@ def _halo_concat(blocks, send_next, send_prev, devices) -> List[torch.Tensor]:
     return [torch.cat([b, a, c], dim=0) for b, a, c in zip(blocks, from_prev, from_next)]
 
 
+def gather_all(blocks: Sequence[torch.Tensor], devices) -> List[torch.Tensor]:
+    """Every part's block gathered whole on each part's device (the JAX
+    package's all-gather): ``[sum B_p, F]`` in part order, one
+    concatenation a distinct device, shared by the parts on it."""
+    whole: Dict[torch.device, torch.Tensor] = {}
+    for d in devices:
+        if d not in whole:
+            whole[d] = torch.cat([b.to(d) for b in blocks], dim=0)
+    return [whole[d] for d in devices]
+
+
+def _exchange(plan: dict, blocks, devices) -> List[torch.Tensor]:
+    """The source buffer of each part: the whole gathered state for a plan
+    that reads every row (``gather``, the row blocks of parallel/gspmd.py),
+    else the ring buffer ``[block | halo from p-1 | halo from p+1]``."""
+    if plan.get("gather"):
+        return gather_all(blocks, devices)
+    return _halo_concat(blocks, plan["send_next"], plan["send_prev"], devices)
+
+
 # ---------------------------------------------------------------- layers
 
 def _slot_flux(params: dict, cfg: SWEGNNConfig, rows: torch.Tensor, proj_dst: torch.Tensor,
@@ -728,9 +748,10 @@ def _dist_layer_local(params: list, cfg: SWEGNNConfig, devices, x_s: list, x_d: 
                       x_d_src: Optional[list] = None) -> list:
     """One SWEGNN layer over the ring (JAX dist_swegnn.py:487-615): every
     argument a list over parts. ``params`` holds each part's copy of the
-    layer's parameters, ``plan`` is ``place_slot_plan``'s, ``ea`` each
-    group's encoded slot edge features (a list over groups of lists over
-    parts), None without edge features.
+    layer's parameters, ``plan`` is ``place_slot_plan``'s (or a row plan of
+    parallel/gspmd.py, whose buffer is the whole gathered state:
+    ``_exchange``), ``ea`` each group's encoded slot edge features (a list
+    over groups of lists over parts), None without edge features.
 
     The flux takes one exchange of the source projection. With ``x_s_src``
     / ``x_d_src`` the sources are another, disjoint block (the un-pooling
@@ -750,8 +771,7 @@ def _dist_layer_local(params: list, cfg: SWEGNNConfig, devices, x_s: list, x_d: 
     proj_src = [a for a, _ in proj]
     groups = plan["groups"]
     buffered = any(g["buffered"] for g in groups)
-    sn, sp = plan["send_next"], plan["send_prev"]
-    buf_ps = _halo_concat(proj_src, sn, sp, devices) if buffered else None
+    buf_ps = _exchange(plan, proj_src, devices) if buffered else None
     flux = []
     for gi, g in enumerate(groups):
         fl = []
@@ -766,11 +786,11 @@ def _dist_layer_local(params: list, cfg: SWEGNNConfig, devices, x_s: list, x_d: 
         # single-device layer
         out = [o.to(getattr(torch, cd)) for o in out]
         out_src = out if same_block else [o.to(getattr(torch, cd)) for o in out_src]
-    buf = buf_const = (_halo_concat(out_src, sn, sp, devices)
+    buf = buf_const = (_exchange(plan, out_src, devices)
                        if buffered and not same_block else None)
     for k in range(cfg.K):
         if buffered:
-            buf = _halo_concat(out, sn, sp, devices) if same_block else buf_const
+            buf = _exchange(plan, out, devices) if same_block else buf_const
         local = out if same_block else out_src
         new = []
         for p, pp in enumerate(params):
@@ -959,7 +979,6 @@ def make_dist_gnn_forward(devices: Sequence, cfg):
     if cfg.type_gnn != "SWEGNN":
         raise ValueError(f"the ring path covers the SWEGNN processor, not {cfg.type_gnn}")
     devices = [torch.device(d) for d in devices]
-    swe_cfg = cfg.swegnn_cfg()
 
     def forward(params, x_static, x_dynamic, node_mask, src_tab, smask, ea_slots,
                 send_next, send_prev):
@@ -967,19 +986,33 @@ def make_dist_gnn_forward(devices: Sequence, cfg):
         plan = place_slot_plan({"src_tab": src_tab, "smask": smask, "send_next": send_next,
                                 "send_prev": send_prev}, devices, block, ea=ea_slots)
         reps = replicate(params, devices)
-        x0, x_s, x_d = _encode_x(reps, cfg, _split_rows(x_static, devices),
-                                 _split_rows(x_dynamic, devices))
-        ea = [_encode_ea(reps, cfg, plan["groups"][0]["ea"])]
-        h = x_d
-        for layer in range(cfg.n_gnn_layers):
-            h = _activate(reps, cfg, _dist_layer_local(
-                [pp["gnn_processor"][layer] for pp in reps], swe_cfg, devices, x_s, x_d,
-                plan, ea))
-            x_d = h
-        out = _decode(reps, cfg, h, x0, _split_rows(node_mask, devices))
+        out = gnn_parts_forward(reps, cfg, devices, _split_rows(x_static, devices),
+                                _split_rows(x_dynamic, devices),
+                                _split_rows(node_mask, devices), plan)
         return _gather_rows(out, x_static.device)
 
     return forward
+
+
+def gnn_parts_forward(reps: list, cfg, devices, x_static: list, x_dynamic: list,
+                      node_mask: list, plan: dict, ea: Optional[list] = None) -> list:
+    """The single-scale SWE-GNN on parts (``cfg`` a ``GNNConfig`` with
+    ``type_gnn='SWEGNN'``): each argument a list over parts, ``reps`` each
+    part's parameter copy, ``plan`` a placed slot plan of one group whose
+    ``ea`` holds the raw slot edge features; ``ea`` the encoded ones
+    (``[encoded group 0 features]``), encoded here when not given ->
+    each part's ``[B_p, 2]`` predictions."""
+    swe_cfg = cfg.swegnn_cfg()
+    x0, x_s, x_d = _encode_x(reps, cfg, x_static, x_dynamic)
+    if ea is None:
+        ea = [_encode_ea(reps, cfg, plan["groups"][0]["ea"])]
+    h = x_d
+    for layer in range(cfg.n_gnn_layers):
+        h = _activate(reps, cfg, _dist_layer_local(
+            [pp["gnn_processor"][layer] for pp in reps], swe_cfg, devices, x_s, x_d,
+            plan, ea))
+        x_d = h
+    return _decode(reps, cfg, h, x0, node_mask)
 
 
 def _pool_cross(x_fine: list, plan: dict, devices) -> list:
@@ -989,8 +1022,7 @@ def _pool_cross(x_fine: list, plan: dict, devices) -> list:
     the local fine block, the others the exchanged buffer. A coarse row that
     receives nothing becomes zero."""
     groups = plan["groups"]
-    buf = (_halo_concat(x_fine, plan["send_next"], plan["send_prev"], devices)
-           if any(g["buffered"] for g in groups) else None)
+    buf = _exchange(plan, x_fine, devices) if any(g["buffered"] for g in groups) else None
     out = []
     for p, xf in enumerate(x_fine):
         n_dst = groups[0]["tab"][p].shape[0]
@@ -1006,14 +1038,31 @@ def _pool_cross(x_fine: list, plan: dict, devices) -> list:
     return out
 
 
+def encode_dist_edges(reps: list, cfg, dist: dict) -> list:
+    """Each scale's slot edge features encoded per part (JAX
+    dist_swegnn.py:1062-1074; each real edge sits in one slot): per scale,
+    a list over slot groups of lists over parts, or for a width-W plan the
+    pair (block's, halo rows'). ``reps`` holds each part's parameter
+    copy."""
+    ea_b = []
+    for pl in dist["proc"]:
+        if "groups" in pl:
+            ea_b.append([_encode_ea(reps, cfg, g["ea"]) for g in pl["groups"]])
+        else:
+            ea_b.append((_encode_ea(reps, cfg, pl["ea"]), _encode_ea(reps, cfg, pl["ext_ea"])))
+    return ea_b
+
+
 def make_dist_msgnn_forward(devices: Sequence, cfg):
     """The multiscale MSGNN over the ring (JAX dist_swegnn.py:990-1145; ``cfg``
     a ``models.msgnn.MSGNNConfig``, mean pooling only):
-    ``forward(params, dist) -> per scale, the list of each part's [B_i, 2]
-    predictions`` (part p on ``devices[p]``; concatenating every scale's
-    parts in order gives the graph's scale-major rows). ``dist`` is
+    ``forward(params, dist, ea_b=None) -> per scale, the list of each part's
+    [B_i, 2] predictions`` (part p on ``devices[p]``; concatenating every
+    scale's parts in order gives the graph's scale-major rows). ``dist`` is
     ``place_dist_inputs``'s plans with the node features added, per scale a
-    list over parts: ``x_static``, ``x_dynamic``, ``node_mask``.
+    list over parts: ``x_static``, ``x_dynamic``, ``node_mask``; ``ea_b``
+    the encoded slot edge features (``encode_dist_edges``), encoded in the
+    call when not given.
 
     Processors exchange boundary rows a hop (or a window, on a width-W
     plan); pooling and un-pooling exchange rows across adjacent scales'
@@ -1025,7 +1074,7 @@ def make_dist_msgnn_forward(devices: Sequence, cfg):
     L = cfg.num_scales
     ks = cfg.k_schedule
 
-    def forward(params, dist):
+    def forward(params, dist, ea_b=None):
         reps = replicate(params, devices)
         x0_b, xs_b, xd_b = [], [], []
         for i in range(L):
@@ -1033,15 +1082,8 @@ def make_dist_msgnn_forward(devices: Sequence, cfg):
             x0_b.append(x0)
             xs_b.append(xs)
             xd_b.append(xd)
-        # each scale's slot edge features, encoded per part (JAX
-        # dist_swegnn.py:1062-1074): each real edge sits in one slot
-        ea_b = []
-        for pl in dist["proc"]:
-            if "groups" in pl:
-                ea_b.append([_encode_ea(reps, cfg, g["ea"]) for g in pl["groups"]])
-            else:
-                ea_b.append((_encode_ea(reps, cfg, pl["ea"]),
-                             _encode_ea(reps, cfg, pl["ext_ea"])))
+        if ea_b is None:
+            ea_b = encode_dist_edges(reps, cfg, dist)
 
         def processor(i: int, gnn_id: int) -> list:
             pl = dist["proc"][i]

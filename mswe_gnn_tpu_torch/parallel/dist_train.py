@@ -79,8 +79,8 @@ def prepare_ring_graphs(graphs: Sequence[FloodGraph], n_parts: int
     first (JAX dist_train.py:81-95) -> (reordered graphs, permutation). A
     sample whose order arrays equal the first's takes its permutation
     directly; another one is ordered itself, and raises when its
-    permutation differs: mixed meshes need the data-parallel path, which the
-    port has not yet."""
+    permutation differs: mixed meshes take the GSPMD data x graph mesh
+    (``parallel: {mode: gspmd}``)."""
     perm = ring_order(graphs[0])
     out = []
     for g in graphs:
@@ -88,7 +88,7 @@ def prepare_ring_graphs(graphs: Sequence[FloodGraph], n_parts: int
             if not np.array_equal(ring_order(g), perm):
                 raise ValueError(
                     "ring_halo training requires every sample to share one mesh topology "
-                    "(the large-single-mesh regime); mixed meshes need the GSPMD / "
-                    "data-parallel path, which the port does not have yet")
+                    "(the large-single-mesh regime); mixed meshes take the GSPMD data x "
+                    "graph mesh (parallel: {mode: gspmd})")
         out.append(apply_ring_order(g, perm))
     return out, perm

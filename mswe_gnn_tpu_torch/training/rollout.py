@@ -4,7 +4,13 @@ A Python loop over steps: inject the boundary condition into the ghost rows,
 predict, shift the prediction into the dynamic window (reference
 utils/dataset.py:486-529, training/train.py:67-95). A ``concat_graphs`` union
 rolls out as one graph: its BC arrays hold every graph's ghost rows.
-``rollout_batch`` (the vmap batch layout) is not ported yet.
+
+``rollout_batch`` (JAX rollout.py:130-132, a ``jax.vmap`` over a stacked
+batch) folds the stacked batch into the union ``DeviceConcatPlan`` builds on
+the device, rolls it out as one graph and unfolds the result to stacked
+order. A batch placed on a mesh (``parallel/sharding.py``) rolls out row by
+row: each data row its own graphs' union, split over the row's ``graph``
+devices by ``parallel/gspmd.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import torch
 from mswe_gnn_tpu_torch import NUM_WATER_VARS, resolve_device, tree_to
 from mswe_gnn_tpu_torch.graph import FloodGraph
 from mswe_gnn_tpu_torch.models.prepare import prepare_graph
+from mswe_gnn_tpu_torch.parallel.gspmd import row_model
+from mswe_gnn_tpu_torch.parallel.sharding import MeshBatch, fold, unfold_nodes
 
 
 def bc_window(graph: FloodGraph, step: int) -> torch.Tensor:
@@ -77,6 +85,19 @@ def shift_prediction(x_dynamic: torch.Tensor, pred: torch.Tensor,
     return torch.cat([x_dynamic[:, NUM_WATER_VARS:], pred], dim=-1)
 
 
+def _unroll(fwd: Callable, graph: FloodGraph, steps: int) -> torch.Tensor:
+    """The autoregressive loop of ``fwd(graph at step t) -> [N, 2]`` ->
+    predictions [N, 2, steps]."""
+    x_dyn = graph.x_dynamic
+    preds = []
+    for t in range(steps):
+        x_dyn = inject_bc(x_dyn, graph, bc_window(graph, t))
+        pred = fwd(with_step_forcing(graph, t).replace(x_dynamic=x_dyn))
+        x_dyn = shift_prediction(x_dyn, pred, graph.previous_t)
+        preds.append(pred)
+    return torch.stack(preds, dim=-1)
+
+
 def rollout(apply_fn: Callable, params, cfg, graph: FloodGraph, steps: int,
             device=None) -> torch.Tensor:
     """Full autoregressive rollout -> predictions [N, 2, steps].
@@ -87,14 +108,39 @@ def rollout(apply_fn: Callable, params, cfg, graph: FloodGraph, steps: int,
     device = resolve_device(device)
     graph = graph.to(device)
     params = tree_to(params, device)
-    preds = []
     with torch.inference_mode():
         graph = prepare_graph(params, cfg, graph)
-        x_dyn = graph.x_dynamic
-        for t in range(steps):
-            x_dyn = inject_bc(x_dyn, graph, bc_window(graph, t))
-            pred = apply_fn(params, cfg,
-                            with_step_forcing(graph, t).replace(x_dynamic=x_dyn))
-            x_dyn = shift_prediction(x_dyn, pred, graph.previous_t)
-            preds.append(pred)
-    return torch.stack(preds, dim=-1)
+        return _unroll(lambda g: apply_fn(params, cfg, g), graph, steps)
+
+
+def rollout_row(apply_fn: Callable, params, cfg, row, steps: int) -> torch.Tensor:
+    """The rollout of one placed row (``sharding.RowBatch``) -> its union's
+    predictions [N_row, 2, steps] on the row's first device: on one device
+    ``rollout`` with ``apply_fn``, else ``cfg``'s model over the row's
+    devices (``gspmd.RowModel``)."""
+    if len(row.devices) == 1:
+        return rollout(apply_fn, params, cfg, row.graph, steps, device=row.devices[0])
+    model = row_model(row, cfg)
+    with torch.inference_mode():
+        encoded = model.encode_edges(params)
+        return _unroll(lambda g: model(params, g, encoded), row.graph, steps)
+
+
+def rollout_batch(apply_fn: Callable, params, cfg, batch, steps: int,
+                  device=None) -> torch.Tensor:
+    """Rollout of a stacked batch -> [B, N, 2, steps] (JAX
+    rollout.py:130-132), each graph's rollout as ``rollout`` gives it alone.
+
+    ``batch`` is a ``stack_graphs`` batch, folded into one union on
+    ``device`` (default: the GPU), or a ``sharding.MeshBatch``: every row of
+    this process rolls out its own graphs, and the predictions of this
+    process's graphs come back in batch order on the first row's first
+    device."""
+    if not isinstance(batch, MeshBatch):
+        union = fold(batch.to(resolve_device(device)))
+        return unfold_nodes(rollout(apply_fn, params, cfg, union, steps, device=device),
+                            union.spec, union.num_graphs)
+    rows = [r for r in batch.rows if r.graph is not None]
+    home = batch.rows[0].devices[0]
+    return torch.cat([unfold_nodes(rollout_row(apply_fn, params, cfg, r, steps),
+                                   r.graph.spec, len(r.index)).to(home) for r in rows])

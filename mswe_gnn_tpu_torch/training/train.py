@@ -19,10 +19,16 @@ and resume (port of mswe_gnn_tpu/training/train.py).
 - ``Trainer`` assembles its batches on the device (``DeviceConcatPlan``
   over a ``stack_graphs`` copy of each sample list), autosaves
   (``training/checkpoint.py``), resumes, and touches a heartbeat file.
-
-Not ported yet, and raising: the vmap batch layout (``batch_layout="vmap"``,
-stacked batches as a model input) and ``find_max_batch_size``, which probes
-with it.
+- A stacked batch (the vmap layout, JAX train.py:295-299) is folded into the
+  union of its graphs: the errors come from the sums and counts over the
+  whole batch, the conservation term is the batch mean per step, as
+  ``jax.vmap`` gives them. A batch placed on a mesh
+  (``parallel/sharding.py``, ``Trainer(mesh=...)``) runs each data row's
+  union on its row (row-split over its ``graph`` devices by
+  ``parallel/gspmd.py``); each row's sums, counts, residuals and gradient
+  go into the row's slot, are all-reduced across processes
+  (``torch.distributed``) and summed in row order before the error is
+  taken, so every process takes the same step, whichever holds a row.
 """
 from __future__ import annotations
 
@@ -36,14 +42,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mswe_gnn_tpu_torch import resolve_device, tree_leaves, tree_map, tree_to
-from mswe_gnn_tpu_torch.graph import DeviceConcatPlan, FloodGraph, concat_graphs, stack_graphs
+from mswe_gnn_tpu_torch.graph import FloodGraph, concat_graphs, concat_plan, stack_graphs
 from mswe_gnn_tpu_torch.models.prepare import prepare_graph
+from mswe_gnn_tpu_torch.parallel.gspmd import row_model
+from mswe_gnn_tpu_torch.parallel.sharding import (MeshBatch, RowBatch, fold, place,
+                                                  process_index, unfold_nodes)
 from mswe_gnn_tpu_torch.training import loss as loss_lib
 from mswe_gnn_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from mswe_gnn_tpu_torch.training.rollout import (bc_step_inflow, bc_window, inject_bc,
-                                                 rollout, shift_prediction,
+                                                 rollout, rollout_row, shift_prediction,
                                                  with_step_forcing)
-from mswe_gnn_tpu_torch.utils.metrics import get_csi, get_rollout_loss
+from mswe_gnn_tpu_torch.utils.metrics import (csi_counts, csi_from_counts, get_csi,
+                                             get_rollout_loss, rollout_error,
+                                             rollout_error_sums)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,30 +224,44 @@ class CurriculumController:
 
 # ---------------------------------------------------------------- steps
 
-def pushforward_loss(apply_fn: Callable, params, cfg, batch: FloodGraph,
-                     rollout_steps: int, opts: TrainerOptions,
-                     multiscale: bool) -> torch.Tensor:
-    """Mean over rollout steps of the batch-aggregated step loss (JAX
-    train.py:243-304, the union branch; reference training/train.py:125-145).
-    On a ``concat_graphs`` union the errors are concat-then-mean over its
-    graphs and the conservation term is the |batch mean| of their signed
-    residuals."""
-    if batch.x_static.dim() != 2:
-        raise NotImplementedError("vmap-stacked batches are not ported")
-    if opts.remat:
-        def fwd(p, gt):
-            return checkpoint(apply_fn, p, cfg, gt, use_reentrant=False)
-    else:
-        def fwd(p, gt):
-            return apply_fn(p, cfg, gt)
-    # hoist loop-invariant tables and encodings out of the unroll
-    g = prepare_graph(params, cfg, batch)
+class _SumOverProcesses(torch.autograd.Function):
+    """``all_reduce`` (sum) of a tensor over the processes, whose backward is
+    the identity: every process's loss is the same function of the summed
+    pieces, so each passes its own pieces the gradient of that loss, and the
+    parameter gradients are summed afterwards (``_mesh_loss_and_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _model_call(apply_fn: Callable, params, cfg, remat: bool) -> Callable:
+    """``graph -> apply_fn(params, cfg, graph)``, under ``torch.utils.checkpoint``
+    (non-reentrant) with ``remat``, as ``jax.checkpoint`` wraps it."""
+    if remat:
+        return lambda gt: checkpoint(apply_fn, params, cfg, gt, use_reentrant=False)
+    return lambda gt: apply_fn(params, cfg, gt)
+
+
+def _unroll_sums(fwd: Callable, g: FloodGraph, rollout_steps: int, opts: TrainerOptions,
+                 multiscale: bool):
+    """The pushforward unroll of ``fwd`` on ``g`` -> the loss pieces of every
+    step: error sums ``[T, 2]``, counts ``[T]``, conservation residuals
+    ``[T, num_graphs]``."""
     x_dyn = g.x_dynamic
     sums, counts, cons = [], [], []
     for t in range(rollout_steps):
         x_dyn = inject_bc(x_dyn, g, bc_window(g, t))
         gt = with_step_forcing(g, t).replace(x_dynamic=x_dyn)
-        pred = fwd(params, gt)
+        pred = fwd(gt)
         s, c, k = loss_lib.step_loss_sums(
             pred, g.y[..., t], gt, type_loss=opts.type_loss,
             only_where_water=opts.only_where_water, multiscale=multiscale,
@@ -245,31 +270,139 @@ def pushforward_loss(apply_fn: Callable, params, cfg, batch: FloodGraph,
         x_dyn = shift_prediction(x_dyn, pred, g.previous_t)
         sums.append(s)
         counts.append(c)
-        cons.append(k)
-    err = loss_lib.finalize_error(torch.stack(sums), torch.stack(counts)[:, None],
-                                  opts.type_loss)                       # [T, 2]
+        cons.append(k.reshape(-1).expand(g.num_graphs))
+    return torch.stack(sums), torch.stack(counts), torch.stack(cons)
+
+
+def _finish_loss(sums, counts, cons_sum, n_graphs: int, opts: TrainerOptions):
+    """Loss pieces summed over a batch -> the loss: the errors from the
+    sums and counts, the conservation term the |batch mean| of the signed
+    residuals per step, the mean over the steps."""
+    err = loss_lib.finalize_error(sums, counts[:, None], opts.type_loss)     # [T, 2]
     scaler = loss_lib.loss_variable_scaler(opts.velocity_scaler, device=err.device)
     per_step = err @ scaler / scaler.sum()                                # [T]
     if opts.conservation != 0.0:
-        cons = torch.stack(cons)                                          # [T] or [T, b]
-        cons_mean = cons.mean(-1) if cons.dim() > 1 else cons
-        per_step = per_step + opts.conservation * cons_mean.abs()
+        per_step = per_step + opts.conservation * (cons_sum / n_graphs).abs()
     return per_step.mean()
 
 
-def loss_and_grads(apply_fn: Callable, params, cfg, batch: FloodGraph,
-                   rollout_steps: int, opts: TrainerOptions, multiscale: bool):
+def _mesh_row_pieces(apply_fn: Callable, params, cfg, batch: MeshBatch, rollout_steps: int,
+                     opts: TrainerOptions, multiscale: bool) -> List[tuple]:
+    """Each of this process's rows with graphs -> ``(global row, its loss
+    pieces [T, 4]``: error sums, count, residual sum``)`` on the parameters'
+    device: the row's unroll, on one device the model itself on the row's
+    union (the parameters copied there), else the row model of
+    parallel/gspmd.py."""
+    home = tree_leaves(params)[0].device
+    out = []
+    for row in batch.rows:
+        if row.graph is None:
+            continue
+        if len(row.devices) == 1:
+            p = tree_to(params, row.devices[0])
+            g = prepare_graph(p, cfg, row.graph)
+            fwd = _model_call(apply_fn, p, cfg, opts.remat)
+        else:
+            g = row.graph
+            model = row_model(row, cfg)
+            encoded = model.encode_edges(params)
+            if opts.remat:
+                def fwd(gt, model=model, encoded=encoded):
+                    return checkpoint(model, params, gt, encoded, use_reentrant=False)
+            else:
+                def fwd(gt, model=model, encoded=encoded):
+                    return model(params, gt, encoded)
+        s, c, k = _unroll_sums(fwd, g, rollout_steps, opts, multiscale)
+        out.append((row.row, torch.cat([s, c[:, None], k.sum(dim=1, keepdim=True)],
+                                       dim=1).to(home)))
+    return out
+
+
+def _mesh_loss(pieces: List[tuple], batch: MeshBatch, rollout_steps: int,
+               opts: TrainerOptions, home) -> torch.Tensor:
+    """The loss from the rows' pieces: each in its global row's slot of an
+    ``[n_rows, T, 4]`` tensor (across processes all-reduced: one process
+    fills each slot, so the sum is exact), then summed over the rows in
+    order, the same adds whichever process holds a row."""
+    slots = torch.zeros(batch.n_rows, rollout_steps, 4, device=home)
+    if pieces:
+        rows = torch.as_tensor([r for r, _ in pieces], device=home)
+        slots = slots.index_add(0, rows, torch.stack([p for _, p in pieces]))
+    if process_index()[1] > 1:
+        slots = _SumOverProcesses.apply(slots)
+    total = slots.sum(dim=0)
+    return _finish_loss(total[:, :2], total[:, 2], total[:, 3], batch.num_graphs, opts)
+
+
+def pushforward_loss(apply_fn: Callable, params, cfg, batch, rollout_steps: int,
+                     opts: TrainerOptions, multiscale: bool) -> torch.Tensor:
+    """Mean over rollout steps of the batch-aggregated step loss (JAX
+    train.py:243-304; reference training/train.py:125-145). On a
+    ``concat_graphs`` union the errors are concat-then-mean over its graphs
+    and the conservation term is the |batch mean| of their signed
+    residuals. A ``stack_graphs`` batch (the vmap layout) is folded into
+    that union: the sums and counts over the whole batch, the residuals'
+    batch mean, as JAX's vmap branch gives them. A ``sharding.MeshBatch``
+    runs row by row (``_mesh_loss``)."""
+    if isinstance(batch, MeshBatch):
+        pieces = _mesh_row_pieces(apply_fn, params, cfg, batch, rollout_steps, opts, multiscale)
+        return _mesh_loss(pieces, batch, rollout_steps, opts, tree_leaves(params)[0].device)
+    if batch.x_static.dim() == 3:
+        batch = fold(batch)
+    # hoist loop-invariant tables and encodings out of the unroll
+    g = prepare_graph(params, cfg, batch)
+    sums, counts, cons = _unroll_sums(_model_call(apply_fn, params, cfg, opts.remat), g,
+                                      rollout_steps, opts, multiscale)
+    return _finish_loss(sums, counts, cons.sum(dim=1), g.num_graphs, opts)
+
+
+def loss_and_grads(apply_fn: Callable, params, cfg, batch, rollout_steps: int,
+                   opts: TrainerOptions, multiscale: bool):
     """``jax.value_and_grad`` of :func:`pushforward_loss` in the parameters ->
     (loss, gradient tree with the parameters' layout). The parameters are
-    not modified."""
+    not modified. A ``MeshBatch`` takes ``_mesh_loss_and_grads``."""
     work = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(work)
+    if isinstance(batch, MeshBatch):
+        loss, grads = _mesh_loss_and_grads(apply_fn, work, cfg, batch, rollout_steps, opts,
+                                           multiscale)
+        return loss, _unflatten(params, grads)
     with torch.enable_grad():
         loss = pushforward_loss(apply_fn, work, cfg, batch, rollout_steps, opts,
                                 multiscale)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(params, grads)
+
+
+def _mesh_loss_and_grads(apply_fn: Callable, work, cfg, batch: MeshBatch, rollout_steps: int,
+                         opts: TrainerOptions, multiscale: bool):
+    """The loss and the gradients of a ``MeshBatch``, the gradients summed
+    over the data rows in row order: each row's gradient is taken apart (its
+    pieces' share of the loss's gradient), put in its global row's slot of
+    an ``[n_rows, P]`` tensor, all-reduced across processes (one process
+    fills each slot) and summed over the rows. So every process takes the
+    same step, and a run gives the same step whichever processes hold its
+    rows (JAX: GSPMD's all-reduce of the replicas' gradients)."""
+    leaves = tree_leaves(work)
+    home = leaves[0].device
+    sizes = [p.numel() for p in leaves]
+    per_row = torch.zeros(batch.n_rows, sum(sizes), device=home)
+    with torch.enable_grad():
+        pieces = _mesh_row_pieces(apply_fn, work, cfg, batch, rollout_steps, opts, multiscale)
+        loss = _mesh_loss(pieces, batch, rollout_steps, opts, home)
+        if pieces:
+            d_pieces = torch.autograd.grad(loss, [p for _, p in pieces], retain_graph=True)
+        for (row, p), d in zip(pieces, d_pieces if pieces else ()):
+            g = torch.autograd.grad(p, leaves, grad_outputs=d, allow_unused=True)
+            per_row[row] = torch.cat([(torch.zeros_like(x) if gx is None else gx).reshape(-1)
+                                      for x, gx in zip(leaves, g)])
+    if process_index()[1] > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(per_row)
+    flat = per_row.sum(dim=0)
+    return loss.detach(), [f.view_as(p) for f, p in zip(flat.split(sizes), leaves)]
 
 
 def _on_device(params, device: torch.device) -> None:
@@ -279,20 +412,22 @@ def _on_device(params, device: torch.device) -> None:
             raise ValueError(f"parameters on {p.device}, the step runs on {device}")
 
 
-def train_step(params, opt_state, batch: FloodGraph, *, apply_fn, cfg,
+def train_step(params, opt_state, batch, *, apply_fn, cfg,
                rollout_steps: int, opts: TrainerOptions, multiscale: bool,
                optimizer: Optimizer, device=None):
-    """One optimizer step on one graph (JAX train.py:307-318) -> (params,
-    opt_state, loss); the parameters are updated in place.
+    """One optimizer step on one graph, a union, a stacked batch or a batch
+    placed on a mesh (JAX train.py:307-318) -> (params, opt_state, loss);
+    the parameters are updated in place.
 
     Runs on ``device`` (default: the GPU; raises when there is none), where
-    the parameters must already be; the graph is moved there. The graph
-    must arrive without an ``ell_cache``: the loss builds the cache itself,
-    with gradients on, every step."""
+    the parameters must already be; a graph is moved there (a placed batch
+    stays on its mesh). The graph must arrive without an ``ell_cache``: the
+    loss builds the cache itself, with gradients on, every step."""
     device = resolve_device(device)
     _on_device(params, device)
-    batch = batch.to(device)
-    if batch.ell_cache is not None:
+    if not isinstance(batch, MeshBatch):
+        batch = batch.to(device)
+    if not isinstance(batch, MeshBatch) and batch.ell_cache is not None:
         raise ValueError("train_step builds the graph cache inside the loss, with "
                          "gradients on; pass the graph without ell_cache")
     loss, grads = loss_and_grads(apply_fn, params, cfg, batch, rollout_steps, opts,
@@ -301,22 +436,23 @@ def train_step(params, opt_state, batch: FloodGraph, *, apply_fn, cfg,
     return params, opt_state, loss
 
 
-def eval_step(params, batch: FloodGraph, *, apply_fn, cfg, steps: int,
+def eval_step(params, batch, *, apply_fn, cfg, steps: int,
               opts: TrainerOptions, multiscale: bool, per_graph: bool = False,
               device=None) -> Dict[str, object]:
     """Full-rollout validation metrics on one graph or a ``concat_graphs``
     union (JAX train.py:321-363; reference training/train.py:157-180) on
     ``device`` (default: the GPU; raises when there is none). Metrics are
-    taken on the finest scale of a multiscale graph.
+    taken on the finest scale of a multiscale graph. A stacked batch or a
+    ``MeshBatch`` takes ``_eval_placed``.
 
     With ``per_graph`` a union also gives per-simulation curves: the tiled
     spec keeps each scale's graphs back to back, so the finest block
     reshapes to ``[B, n0, ...]``: ``per_graph_CSI_005`` and
     ``per_graph_CSI_03`` ``[B]`` and ``per_graph_loss`` ``[B, 2]``, as
     numpy arrays."""
-    if batch.x_static.dim() != 2:
-        raise NotImplementedError("vmap-stacked batches (the vmap batch layout) are not "
-                                  "ported; batch with concat_graphs")
+    if isinstance(batch, MeshBatch) or batch.x_static.dim() == 3:
+        return _eval_placed(params, batch, apply_fn=apply_fn, cfg=cfg, steps=steps,
+                             opts=opts, multiscale=multiscale, device=device)
     device = resolve_device(device)
     batch = batch.to(device)
     preds = rollout(apply_fn, params, cfg, batch, steps, device=device)
@@ -347,9 +483,120 @@ def eval_step(params, batch: FloodGraph, *, apply_fn, cfg, steps: int,
     return out
 
 
-def find_max_batch_size(*args, **kwargs):
-    raise NotImplementedError("find_max_batch_size probes with stack_graphs batches (the "
-                              "vmap batch layout), which is not ported; use tune_batch_size")
+def _per_graph_pieces(preds, real, nmask, opts: TrainerOptions) -> List[torch.Tensor]:
+    """``[b, N, 2, T]`` -> the sums behind JAX's vmap metrics: the per-graph
+    errors' sum, and each CSI's sum and count of non-NaN (graph, step)
+    values."""
+    pieces = [get_rollout_loss(preds, real, nmask, type_loss=opts.type_loss,
+                               only_where_water=opts.only_where_water).sum()]
+    for threshold in (0.05, 0.3):
+        csi = get_csi(preds, real, nmask, water_threshold=threshold)
+        pieces += [csi.nansum(), (~csi.isnan()).sum()]
+    return pieces
+
+
+def _per_graph_metrics(acc: List[float], n_graphs: int) -> Dict[str, float]:
+    def mean(total, n):
+        return total / n if n else float("nan")
+
+    return {"val_loss": acc[0] / (2 * n_graphs), "val_CSI_005": mean(acc[1], acc[2]),
+            "val_CSI_03": mean(acc[3], acc[4])}
+
+
+def _pooled_pieces(preds, real, nmask, opts: TrainerOptions) -> List[torch.Tensor]:
+    """``[N, 2, T]`` rows of a union -> the sums behind the union's metrics
+    (``get_rollout_loss`` and ``get_csi`` of the whole union, JAX's concat
+    branch): ``rollout_error_sums`` and each CSI's ``csi_counts``."""
+    pieces = list(rollout_error_sums(preds, real, nmask, opts.type_loss, opts.only_where_water))
+    for threshold in (0.05, 0.3):
+        pieces += csi_counts(preds, real, nmask, threshold)
+    return pieces
+
+
+def _pooled_metrics(acc: torch.Tensor, steps: int, opts: TrainerOptions) -> Dict[str, float]:
+    n_err = 2 if opts.only_where_water else 2 * steps
+    sums = acc[:n_err].reshape(2, -1) if not opts.only_where_water else acc[:n_err]
+    err = rollout_error(sums, acc[n_err], opts.type_loss, opts.only_where_water)
+    out = {"val_loss": float(err.mean())}
+    counts = acc[n_err + 1:].reshape(2, 3, steps)
+    for name, (tp, fp, fn) in zip(("val_CSI_005", "val_CSI_03"), counts):
+        out[name] = float(csi_from_counts(tp, fp, fn).nanmean())
+    return out
+
+
+def _eval_placed(params, batch, *, apply_fn, cfg, steps: int, opts: TrainerOptions,
+                 multiscale: bool, device=None) -> Dict[str, float]:
+    """``eval_step`` of a stacked batch or a ``MeshBatch``: the rollout of
+    every row (``rollout_row``; a stacked batch is one row, its graphs'
+    union), then the metrics from sums that add over rows and processes
+    (all-reduced). A stacked batch or a ``MeshBatch`` of the stacked layout
+    gives JAX's vmap metrics (train.py:364-379): ``val_loss`` the mean of
+    the per-graph errors, the CSIs the nan-mean of the per-graph, per-step
+    values; one of the union layout gives the metrics of the whole union
+    (the concat branch, train.py:334-349)."""
+    if not isinstance(batch, MeshBatch):
+        device = resolve_device(device)
+        union = fold(batch.to(device))
+        batch = MeshBatch(rows=[RowBatch(row=0, devices=[device],
+                                         index=np.arange(union.num_graphs), graph=union)],
+                          n_rows=1, num_graphs=union.num_graphs, layout="stacked")
+    pooled = batch.layout == "union"
+    home = batch.rows[0].devices[0]
+    acc = None
+    for row in batch.rows:
+        if row.graph is None:
+            continue
+        b, spec = len(row.index), row.graph.spec
+        preds = unfold_nodes(rollout_row(apply_fn, params, cfg, row, steps), spec, b)
+        real = unfold_nodes(row.graph.y[..., :steps], spec, b)
+        nmask = unfold_nodes(row.graph.node_mask, spec, b)
+        if multiscale:
+            fs = slice(0, spec.node_counts[0] // b)
+            preds, real, nmask = preds[:, fs], real[:, fs], nmask[:, fs]
+        if pooled:
+            flat = lambda x: x.reshape(-1, *x.shape[2:])                       # noqa: E731
+            pieces = _pooled_pieces(flat(preds), flat(real), flat(nmask), opts)
+        else:
+            pieces = _per_graph_pieces(preds, real, nmask, opts)
+        row_acc = torch.cat([x.double().reshape(-1) for x in pieces]).to(home)
+        acc = row_acc if acc is None else acc + row_acc
+    if acc is None:             # this process holds none of the batch's graphs
+        size = 5 if not pooled else ((2 if opts.only_where_water else 2 * steps) + 1 + 6 * steps)
+        acc = torch.zeros(size, dtype=torch.float64, device=home)
+    if process_index()[1] > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(acc)
+    if pooled:
+        return _pooled_metrics(acc.cpu(), steps, opts)
+    return _per_graph_metrics(acc.tolist(), batch.num_graphs)
+
+
+def find_max_batch_size(apply_fn, cfg, params, graphs, opts: TrainerOptions,
+                        multiscale: bool = True, start: int = 1, limit: int = 256,
+                        device=None) -> int:
+    """The largest batch size, doubling from ``start``, at which one train
+    step of a stacked batch of the first graphs runs at
+    ``opts.max_rollout_steps`` (JAX train.py:181-200; the reference's
+    CurriculumBatchSizeFinder) -> at most ``min(limit, len(graphs))``.
+
+    Only running out of device memory ends the probe; any other error
+    raises, as in ``tune_batch_size`` (the JAX package stops at any
+    exception)."""
+    device = resolve_device(device)
+    optimizer = make_optimizer(opts, steps_per_epoch=1)
+    best, bs = 0, start
+    while bs <= min(limit, len(graphs)):
+        try:
+            batch = stack_graphs(list(graphs[:bs])).to(device)
+            p = clone_tree(tree_to(params, device))
+            train_step(p, optimizer.init(p), batch, apply_fn=apply_fn, cfg=cfg,
+                       rollout_steps=opts.max_rollout_steps, opts=opts,
+                       multiscale=multiscale, optimizer=optimizer, device=device)
+        except torch.cuda.OutOfMemoryError:
+            break
+        best, bs = bs, bs * 2
+    return max(best, start)
 
 
 def tune_batch_size(apply_fn, cfg, params, graphs, opts: TrainerOptions,
@@ -417,7 +664,7 @@ def watch_norms(params, prev=None, prefix: str = "watch") -> Dict[str, float]:
 
 class Trainer:
     """Curriculum fit, validation, early stopping, spike rollback,
-    checkpoints and resume on one device (JAX train.py:382-735).
+    checkpoints and resume on one device or a mesh (JAX train.py:382-735).
 
     A private copy of the parameters is moved to ``device`` (default: the
     GPU); the sample lists stay as given, and each is copied to the device
@@ -435,6 +682,21 @@ class Trainer:
     The autosave also keeps the shuffle generator's state, so that a resumed
     run draws the batches an uninterrupted one would (the JAX package's
     resume restarts the generator from the seed).
+
+    ``batch_layout="vmap"`` trains on stacked batches (JAX train.py:396-449);
+    ``mesh`` (``sharding.make_mesh``) places every batch on it
+    (``sharding.place``: the graphs over the data rows, each row's union
+    split over its ``graph`` devices), in either layout. The parameters and
+    the optimizer state stay on the mesh's first device, and each step copies
+    the parameters to the other devices inside the forward, so that autograd
+    sums every replica's gradient before the one optimizer step (JAX keeps a
+    replica on every device and GSPMD sums the gradients: the same update).
+    Across processes the gradients are all-reduced too, the parameters
+    are broadcast from process 0 at construction, and ``sync_from_main``
+    hands every process process 0's whole state (after a resume). The sample lists stay
+    resident on that first device as one stacked copy, from which each
+    row's union is gathered (the JAX package turns its device dataset off
+    under a mesh, train.py:448-449).
     """
 
     def __init__(self, apply_fn, cfg, params, opts: TrainerOptions,
@@ -442,16 +704,23 @@ class Trainer:
                  multiscale: bool = True, log_fn: Optional[Callable] = None,
                  checkpoint_dir: Optional[str] = None, checkpoint_every: int = 25,
                  curriculum_mode: str = "epoch", batch_layout: str = "concat",
-                 device=None):
-        if batch_layout != "concat":
-            raise NotImplementedError(f"batch_layout={batch_layout!r}: only the concat "
-                                      "layout is ported (the vmap layout is not)")
-        self.device = resolve_device(device)
+                 mesh=None, device=None):
+        if batch_layout not in ("concat", "vmap"):
+            raise ValueError(f"batch_layout {batch_layout!r}: 'concat' or 'vmap'")
+        self.batch_layout = batch_layout
+        self.device = resolve_device(device if mesh is None else mesh[0][0])
+        # a stacked batch without a mesh runs as a one-device mesh
+        self.mesh = mesh if mesh is not None or batch_layout == "concat" else [[self.device]]
         self.apply_fn = apply_fn
         self.cfg = cfg
         self.opts = opts
         self.multiscale = multiscale
         self.params = clone_tree(tree_to(params, self.device))
+        if process_index()[1] > 1:
+            import torch.distributed as dist
+
+            for p in tree_leaves(self.params):
+                dist.broadcast(p, 0)
         self.train_graphs = list(train_graphs)
         self.val_graphs = list(val_graphs)
         self.steps_per_epoch = max(1, len(train_graphs) // opts.batch_size)
@@ -472,7 +741,6 @@ class Trainer:
         self.checkpoint_every = checkpoint_every
         self.curriculum = CurriculumController(opts, mode=curriculum_mode)
         self._resident: Dict[tuple, tuple] = {}
-        self._dev_plans: Dict[tuple, DeviceConcatPlan] = {}
 
     def _device_copy(self, graphs, batch_size: int):
         """The device copy of a sample list for batches of ``batch_size``,
@@ -485,22 +753,18 @@ class Trainer:
         hit = self._resident.get(key)
         if hit is None or hit[0] is not graphs:
             g0 = graphs[0]
-            stack = batch_size > 1 and len(graphs) > 1 and all(
+            stack = (batch_size > 1 or self.mesh is not None) and all(
                 g.spec == g0.spec and g.previous_t == g0.previous_t
                 and g.bc_kind == g0.bc_kind and (g.y is None) == (g0.y is None)
                 and (g.y is None or g.y.shape == g0.y.shape)
                 and (g.forcing is None) == (g0.forcing is None)
                 for g in graphs)
+            if self.mesh is not None and not stack:
+                raise ValueError("batches on a mesh need samples that share one spec")
             hit = ((graphs, stack_graphs(graphs).to(self.device), None) if stack
                    else (graphs, None, [g.to(self.device) for g in graphs]))
             self._resident[key] = hit
         return hit[1], hit[2]
-
-    def _device_plan(self, spec, b) -> DeviceConcatPlan:
-        key = (spec, b)
-        if key not in self._dev_plans:
-            self._dev_plans[key] = DeviceConcatPlan(spec, b)
-        return self._dev_plans[key]
 
     def _maybe_rollback(self, train_loss: float) -> bool:
         """Divergence guard (JAX train.py:468-507): on a loss spike (>= factor
@@ -583,18 +847,57 @@ class Trainer:
             self.rng.bit_generator.state = meta["rng_state"]
         return self.start_epoch
 
+    def sync_from_main(self) -> None:
+        """Every process takes process 0's state, so that all of them step
+        alike (JAX keeps one replicated state): the parameters, the
+        optimizer state, the best parameters, the history, the epoch to
+        continue from, the early-stop state and the shuffle generator's.
+        After process 0 resumed, the others need not read its autosave."""
+        import torch.distributed as dist
+
+        def host(tree):
+            return tree_map(lambda x: x.detach().cpu(), tree)
+
+        def like(got, local):
+            return _unflatten(local, [g.to(x.device) for g, x in
+                                      zip(tree_leaves(got), tree_leaves(local))])
+
+        fields = ("history", "start_epoch", "best_val_loss", "best_val_csi", "best_score",
+                  "epochs_without_improvement")
+        box = [None]
+        if process_index()[0] == 0:
+            box = [{"params": host(self.params), "best": host(self.best_params),
+                    "opt": host(self.optimizer.state_tree(self.opt_state, self.params)),
+                    "rng": self.rng.bit_generator.state,
+                    **{k: getattr(self, k) for k in fields}}]
+        dist.broadcast_object_list(box, src=0)
+        got = box[0]
+        self._copy_into_params(got["params"])
+        self.best_params = like(got["best"], self.params)
+        self.optimizer.load_state_tree(self.opt_state, self.params, like(
+            got["opt"], self.optimizer.state_tree(self.opt_state, self.params)))
+        self.rng.bit_generator.state = got["rng"]
+        for k in fields:
+            setattr(self, k, got[k])
+
     def _batches(self, graphs, batch_size: int, shuffle: bool, drop_tail: bool = True):
         """Unions of ``batch_size`` graphs in the generator's order (JAX
-        train.py:583-604). Training drops a ragged tail; validation
-        (``drop_tail=False``) keeps it as a smaller union."""
+        train.py:583-604), or with a mesh their placement on it (``_place``).
+        Training drops a ragged tail; validation (``drop_tail=False``) keeps
+        it as a smaller batch."""
         idx = np.arange(len(graphs))
         if shuffle:
             self.rng.shuffle(idx)
         stacked, each = self._device_copy(graphs, batch_size)
-        if stacked is not None:
+        if self.mesh is not None:
+            layout = "stacked" if self.batch_layout == "vmap" else "union"
+
             def build(sel):
-                return self._device_plan(graphs[0].spec, len(sel))(
-                    stacked, np.asarray(sel, np.int64))
+                # JAX's _place (train.py:573-581): the batch on the mesh
+                return place(stacked, sel, self.mesh, layout=layout)
+        elif stacked is not None:
+            def build(sel):
+                return concat_plan(graphs[0].spec, len(sel))(stacked, np.asarray(sel, np.int64))
         else:
             def build(sel):
                 return concat_graphs([each[j] for j in sel])

@@ -33,17 +33,56 @@ def _ratio_or_nan(num, denom):
                        torch.full_like(num, float("nan")))
 
 
+def csi_counts(pred_roll, real_roll, node_mask, water_threshold: float = 0.0):
+    """The counts behind ``get_csi``, which add over graphs and devices:
+    ``(tp, fp, fn)`` per time step."""
+    tp, _, fp, fn = _confusion(pred_roll, real_roll, node_mask, water_threshold)
+    return tp, fp, fn
+
+
+def csi_from_counts(tp, fp, fn):
+    """CSI per time step from ``csi_counts``; NaN where the denominator is 0."""
+    return _ratio_or_nan(tp, tp + fn + fp)
+
+
 def get_csi(pred_roll, real_roll, node_mask, water_threshold: float = 0.0):
     """Critical Success Index per time step; NaN where the denominator is 0
     (reference utils/miscellaneous.py:153-160)."""
-    tp, _, fp, fn = _confusion(pred_roll, real_roll, node_mask, water_threshold)
-    return _ratio_or_nan(tp, tp + fn + fp)
+    return csi_from_counts(*csi_counts(pred_roll, real_roll, node_mask, water_threshold))
 
 
 def get_f1(pred_roll, real_roll, node_mask, water_threshold: float = 0.0):
     """F1 score per time step (reference utils/miscellaneous.py:162-169)."""
     tp, _, fp, fn = _confusion(pred_roll, real_roll, node_mask, water_threshold)
     return _ratio_or_nan(tp, tp + 0.5 * (fn + fp))
+
+
+def rollout_error_sums(pred_roll, real_roll, node_mask, type_loss: str = "RMSE",
+                       only_where_water: bool = False):
+    """The sums behind ``get_rollout_loss``, which add over graphs and
+    devices -> ``(error sums, count)``: with ``only_where_water`` the
+    squared (RMSE) or absolute errors over the wet (node, time) entries
+    ``[..., 2]`` and their count ``[...]``, otherwise over the nodes, per
+    time ``[..., 2, T]``, and the node count ``[...]``."""
+    diff = pred_roll - real_roll
+    err = diff ** 2 if type_loss == "RMSE" else diff.abs()
+    nm = node_mask.to(diff.dtype)
+    if only_where_water:
+        mask = (diff != 0).any(dim=-2) * nm[..., None]             # [..., N, T]
+        return (err * mask[..., None, :]).sum(dim=(-3, -1)), mask.sum(dim=(-2, -1))
+    return (err * nm[..., None, None]).sum(dim=-3), nm.sum(dim=-1)
+
+
+def rollout_error(sums, count, type_loss: str = "RMSE", only_where_water: bool = False):
+    """``rollout_error_sums``' sums -> the error per variable: the mean (its
+    root for RMSE) over the wet entries, or per time over the nodes and
+    then over time."""
+    cnt = torch.clamp(count, min=1.0)
+    if only_where_water:
+        err = sums / cnt[..., None]
+        return torch.sqrt(err) if type_loss == "RMSE" else err
+    per_t = sums / cnt[..., None, None]
+    return (torch.sqrt(per_t) if type_loss == "RMSE" else per_t).mean(dim=-1)
 
 
 def get_rollout_loss(pred_roll, real_roll, node_mask, type_loss: str = "RMSE",
@@ -55,24 +94,8 @@ def get_rollout_loss(pred_roll, real_roll, node_mask, type_loss: str = "RMSE",
     only_where_water=True: error over all (node, time) entries where any
     variable differs, one pooled mean per variable. Otherwise the per-time
     error over nodes, then the mean over time."""
-    diff = pred_roll - real_roll
-    nm = node_mask.to(diff.dtype)
-    if only_where_water:
-        www = (diff != 0).any(dim=-2)                              # [..., N, T]
-        mask = www * nm[..., None]
-        cnt = torch.clamp(mask.sum(dim=(-2, -1)), min=1.0)         # [...]
-        if type_loss == "RMSE":
-            s = (diff ** 2 * mask[..., None, :]).sum(dim=(-3, -1))  # [..., 2]
-            return torch.sqrt(s / cnt[..., None])
-        s = (diff.abs() * mask[..., None, :]).sum(dim=(-3, -1))
-        return s / cnt[..., None]
-    cnt = torch.clamp(nm.sum(dim=-1), min=1.0)
-    if type_loss == "RMSE":
-        per_t = torch.sqrt((diff ** 2 * nm[..., None, None]).sum(dim=-3)
-                           / cnt[..., None, None])
-        return per_t.mean(dim=-1)
-    per_t = (diff.abs() * nm[..., None, None]).sum(dim=-3) / cnt[..., None, None]
-    return per_t.mean(dim=-1)
+    return rollout_error(*rollout_error_sums(pred_roll, real_roll, node_mask, type_loss,
+                                             only_where_water), type_loss, only_where_water)
 
 
 def wd_to_fat(wd, temporal_res: float, water_threshold: float = 0.0,

@@ -47,7 +47,8 @@ def test_port_imports_nothing_of_jax():
         "native", "config", "main", "data/triangulate", "data/npz_store", "data/synthetic",
         "data/meshing", "utils/metrics", "utils/analysis", "utils/logging", "ops/segment",
         "models/convs", "models/gnn", "data/interp", "data/augment", "data/io",
-        "data/netcdf", "data/torch_compat", "compat/torch_import")} <= scanned
+        "data/netcdf", "data/torch_compat", "compat/torch_import", "parallel/sharding",
+        "parallel/gspmd", "dryrun")} <= scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
            for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []

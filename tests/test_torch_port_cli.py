@@ -285,7 +285,7 @@ def test_triangulated_micro_through_the_cli(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("what", ["sweep", "dataset_folder", "map_folder", "parallel",
                                   "orbax", "wandb"])
-def test_unported_cli_options_raise(tmp_path, what):
+def test_unported_cli_options_raise(tmp_path, monkeypatch, what):
     if what == "sweep":
         with pytest.raises(NotImplementedError, match="sweep"):
             port_main.main(["sweep", "--device", "cpu"])
@@ -297,9 +297,17 @@ def test_unported_cli_options_raise(tmp_path, what):
         with pytest.raises(FileNotFoundError, match="nowhere"):
             port_main.prepare_data(cfg)
     elif what == "parallel":
-        with pytest.raises(NotImplementedError, match="item 10"):
+        # the data x graph mesh is ported (tests/test_torch_port_mesh.py): a
+        # data-parallel block trains over the listed devices, and one
+        # device is too few for it
+        monkeypatch.setenv("MSWE_DATA_CACHE", str(tmp_path / "cache"))
+        with pytest.raises(ValueError, match="need 2 devices"):
             port_main.run_training(dict(MICRO, parallel={"data": 2}), str(tmp_path),
                                    device="cpu")
+        summary = port_main.run_training(dict(MICRO, parallel={"data": 2}),
+                                         str(tmp_path / "mesh"), device="cpu,cpu")
+        assert os.path.exists(os.path.join(tmp_path, "mesh", "best", "meta.json"))
+        assert all(np.isfinite(v) for v in summary.values())
     elif what == "orbax":
         with pytest.raises(NotImplementedError, match="torch_port_convert"):
             port_main.restore_weights(os.path.join(ROOT, JAX_BEST), {})

@@ -191,15 +191,15 @@ def test_build_model_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
-    """What the port still leaves out raises: vmap-stacked batches (ROADMAP
-    Queue 1). The single-scale GNN, learned pooling and the edge-major
+    """A model, layer or slope method that neither package knows raises
+    ValueError. The single-scale GNN, learned pooling and the edge-major
     SWEGNN path are ported (tests/test_torch_port_gnn.py), and so are storm
     forcing and lstsq slopes (tests/test_torch_port_forcing.py,
-    tests/test_torch_port_data.py); a model, layer or slope method that
-    neither package knows raises ValueError."""
+    tests/test_torch_port_data.py) and vmap-stacked batches, whose loss is
+    their union's (tests/test_torch_port_mesh.py)."""
     from mswe_gnn_tpu_torch.data import dataset as port_dataset
     from mswe_gnn_tpu_torch.data.synthetic import generate_dataset as port_generate
-    from mswe_gnn_tpu_torch.graph import stack_graphs
+    from mswe_gnn_tpu_torch.graph import concat_graphs, stack_graphs
     from mswe_gnn_tpu_torch.training import train as port_train
 
     kw = dict(num_node_features=6, num_edge_features=1, num_scales=3, previous_t=2)
@@ -215,9 +215,11 @@ def test_unported_paths_raise():
                                         **dict(kw, num_node_features=g.x_static.shape[1]
                                                + g.x_dynamic.shape[1],
                                                num_edge_features=g.edge_attr.shape[1]))
-    with pytest.raises(NotImplementedError, match="vmap"):
-        port_train.pushforward_loss(apply_fn, params, cfg, stack_graphs([g, g]), 1,
-                                    port_train.TrainerOptions(), True)
+    h = g.replace(x_dynamic=g.x_dynamic * 1.1)
+    losses = [port_train.pushforward_loss(apply_fn, params, cfg, batch([g, h]), 1,
+                                          port_train.TrainerOptions(), True)
+              for batch in (stack_graphs, concat_graphs)]
+    assert torch.equal(*losses)
     with pytest.raises(ValueError, match="unknown model"):
         build_model({"model_type": "UNet"}, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown type_gnn"):

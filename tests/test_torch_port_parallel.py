@@ -583,32 +583,48 @@ def test_cli_ring_halo_matches_single_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", ["too_few_devices", "data_parallel", "gnn", "failing_plan",
                                   "gspmd", "list_without_ring"])
-def test_cli_ring_halo_raises(tmp_path, monkeypatch, case):
-    """Where the JAX package falls back to GSPMD, or the device list does not
-    fit the config, the port raises (and never trains on one device)."""
+def test_cli_ring_halo_raises(tmp_path, monkeypatch, capsys, case):
+    """Where the device list does not fit the config, the port raises (and
+    never trains on one device). Where the JAX package falls back to GSPMD
+    (another model; the config's own corpus at its own 8 parts, whose level
+    1 pool plan is not ring-adjacent) the port falls back too, prints JAX's
+    line and trains on the mesh; ``data`` > 1 under ring_halo gives the
+    ``data`` = 1 result; a ``gspmd`` block trains on its mesh."""
     monkeypatch.setenv("MSWE_DATA_CACHE", str(tmp_path / "cache"))
     cfg, device = ring_config(), cpus()
-    if case == "too_few_devices":
-        cfg["parallel"]["graph"] = 8
-        match, err = "8 devices, --device lists 4", ValueError
-    elif case == "data_parallel":
+    if case in ("too_few_devices", "list_without_ring"):
+        if case == "too_few_devices":
+            cfg["parallel"]["graph"] = 8
+            match, err = "8 devices, --device lists 4", ValueError
+        else:
+            cfg.pop("parallel")
+            match, err = "no parallel ring_halo block", ValueError
+        with pytest.raises(err, match=match):
+            port_main.run_training(cfg, str(tmp_path / "run"), device=device)
+        assert not os.path.exists(tmp_path / "run" / "best")
+        return
+    if case == "data_parallel":
         cfg["parallel"]["data"] = 2
-        match, err = "parallel.data = 2 under ring_halo", NotImplementedError
     elif case == "gnn":
         cfg["models"]["model_type"] = "GNN"
-        match, err = "ring_halo covers the MSGNN, not GNN", NotImplementedError
     elif case == "failing_plan":
-        # the config's own corpus at its own 8 parts: level 1's pool plan is
-        # not ring-adjacent (JAX falls back to GSPMD there)
         cfg["parallel"]["graph"] = 8
         device = ["cpu"] * 8
-        match, err = "level 1's pool plan", NotImplementedError
-    elif case == "gspmd":
-        cfg["parallel"] = {"mode": "gspmd", "graph": 2}
-        match, err = "data-parallel slice", NotImplementedError
     else:
-        cfg.pop("parallel")
-        match, err = "no parallel ring_halo block", ValueError
-    with pytest.raises(err, match=match):
-        port_main.run_training(cfg, str(tmp_path / "run"), device=device)
-    assert not os.path.exists(tmp_path / "run" / "best")
+        cfg["parallel"] = {"mode": "gspmd", "graph": 2}
+    summary = port_main.run_training(copy.deepcopy(cfg), str(tmp_path / "run"), device=device)
+    text = capsys.readouterr().out
+    assert os.path.exists(tmp_path / "run" / "best" / "meta.json")
+    assert all(np.isfinite(v) for v in summary.values())
+    fallback = ("ring_halo unavailable (non-MSGNN model or ring plan failure); falling back "
+                "to GSPMD")
+    assert (fallback in text) == (case in ("gnn", "failing_plan"))
+    if case != "data_parallel":
+        assert "device mesh: data=1 x graph=" in text
+        return
+    assert "4-way" in text and "device mesh" not in text
+    cfg["parallel"]["data"] = 1
+    want = port_main.run_training(cfg, str(tmp_path / "data1"), device=device)
+    for k, v in summary.items():
+        if k not in TIMING_KEYS:
+            assert abs(v - want[k]) < 1e-5, (k, v, want[k])

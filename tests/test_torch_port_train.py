@@ -280,14 +280,14 @@ def test_train_step_and_unported_paths_raise(small_data, monkeypatch):
         port_train.train_step(p, optimizer.init(p), cached, apply_fn=apply_fn, cfg=cfg,
                               rollout_steps=1, opts=opts, multiscale=True,
                               optimizer=optimizer, device="cpu")
-    with pytest.raises(NotImplementedError, match="vmap"):
+    # the vmap layout is ported (tests/test_torch_port_mesh.py): a stacked
+    # batch evaluates, an unknown layout raises
+    with pytest.raises(ValueError, match="'concat' or 'vmap'"):
         port_train.Trainer(apply_fn, cfg, params, port_train.TrainerOptions(batch_size=2),
-                           train, val, device="cpu", batch_layout="vmap")
-    with pytest.raises(NotImplementedError, match="vmap"):
-        port_train.find_max_batch_size(apply_fn, cfg, params, train, opts)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        port_train.eval_step(p, stack_graphs(val[:2]), apply_fn=apply_fn, cfg=cfg, steps=2,
-                             opts=opts, multiscale=True, device="cpu")
+                           train, val, device="cpu", batch_layout="rows")
+    metrics = port_train.eval_step(p, stack_graphs(val[:2]), apply_fn=apply_fn, cfg=cfg,
+                                   steps=2, opts=opts, multiscale=True, device="cpu")
+    assert np.isfinite(metrics["val_loss"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     step_kw = dict(apply_fn=apply_fn, cfg=cfg, opts=opts, multiscale=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):        # no device given
@@ -297,6 +297,8 @@ def test_train_step_and_unported_paths_raise(small_data, monkeypatch):
                               optimizer=optimizer, **step_kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_train.eval_step(p, val[0], steps=2, **step_kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train.find_max_batch_size(apply_fn, cfg, params, train, opts)
 
 
 def test_eval_step_matches_jax():
