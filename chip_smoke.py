@@ -9,7 +9,9 @@ Phases, each printing its own lines:
 1. device  -- exits non-zero without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
 2. build   -- compiles ``mswe_gnn_tpu_torch/ops/csrc/hop.cu`` and
-   ``band_hop.cu`` for sm_90a, one ``nvcc`` each, in parallel; prints the
+   ``band_hop.cu`` for sm_90a, one ``nvcc`` each, and the mesh core of
+   ``native/`` with ``g++``, all in parallel, into the directory that
+   ``cache.enable_compilation_cache`` sets (checked); prints the
    registers, stack frame and spills of every kernel, and fails unless
    each of the 24 forward and 24 backward instantiations is there with no
    stack frame and no spills.
@@ -153,8 +155,27 @@ Phases, each printing its own lines:
    printed; both exit 0, process 0 writes every file, the history (c)'s
    within 1e-5 ((c) and (d) under deterministic algorithms). (e) ring_halo at data 2 x graph 4 on the bench graph: step
    0 bit-equal to data 1's; ``configs/ring_halo.yaml`` at its own 8 parts:
-   JAX's fallback line, then training on a 1 x 8 mesh. Every shape launched
-   on (a)-(e) held bit-equal to the plain versions on every table of it.
+   JAX's fallback line, then training on a 1 x 8 mesh. (f) the bench MSGNN
+   with ``learned_pooling`` on (a)'s batch and mesh: the pooling launches no
+   hop, so its row plans give (a)'s counts (checked); the float32 train
+   step against one device at (a)'s limits, the bf16 step and the 47-step
+   ``rollout_batch`` counted by shape, held and timed as (a) and (b), the
+   rollouts of the comparison under deterministic algorithms (the pooling's
+   segment mean otherwise adds by float32 atomics); the float32
+   ``rollout_batch`` against each graph's own within 1e-4 of its largest
+   prediction. (g)
+   pareto_gnn's Cheb / TAG / GAT (F=64, K=10, 2 layers, float32) on 4
+   distinct samples of phase 11's single-scale graph on the same mesh:
+   ``rollout_batch`` against each graph's one-device rollout within 1e-4 at
+   step 0 and over all 47 steps, timed; the float32 train step against the
+   one-device step on the stacked batch (loss 1e-5 relative, every leaf
+   1e-4 max|leaf|); no hop launched. (h) multichip.yaml with
+   ``models.learned_pooling`` (a printed override) through ``main train``
+   and ``main eval`` as (c). (i) ``utils/profiling.trace`` around one bench
+   model step writes a Chrome trace holding CUDA kernels, and
+   ``utils/profiling.timed`` of phase 4's rollout is printed beside phase
+   4's median. Every shape launched on (a)-(h) held bit-equal to the plain
+   versions on every table of it.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
@@ -163,7 +184,8 @@ trained-weights eval, phase 11's rollout, train step, CLI train and eval
 and learned-pooling step, phase 12's forced rollout and train step and its
 CLI runs, phase 13's ring rollouts, train step, plan variants and CLI
 run, and phase 14's mesh train step, rollout, CLI train and eval, ring
-steps and fallback run), each path counted from 0 just before it runs;
+steps and fallback run, learned-pooling train step, rollout and CLI train
+and eval, and the baselines), each path counted from 0 just before it runs;
 ``launches_by_path`` holds each path's own count, the figure to read for
 one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -273,11 +295,28 @@ def check_instantiations(functions: dict, expected: int = 24) -> None:
 
 
 def phase_build() -> dict:
-    """Builds both libraries; prints registers, stack frame and spills of
-    every kernel, and fails unless every forward and backward instantiation
-    is there without a stack frame or spills (``check_instantiations``)."""
+    """Builds both libraries and the mesh core (``g++``, in a thread beside
+    the two ``nvcc``) into the directory ``cache.enable_compilation_cache``
+    sets; prints registers, stack frame and spills of every kernel, and
+    fails unless every library lies in that directory and every forward and
+    backward instantiation is there without a stack frame or spills
+    (``check_instantiations``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mswe_gnn_tpu_torch import native
+    from mswe_gnn_tpu_torch.cache import enable_compilation_cache
+
     t0 = time.perf_counter()
-    built = kernel_build.build()
+    cache_dir = enable_compilation_cache()
+    with ThreadPoolExecutor(1) as pool:
+        core = pool.submit(native.build)
+        built = kernel_build.build()
+        core = core.result()
+    paths = [core] + [info["path"] for info in built.values()]
+    if any(os.path.dirname(os.path.abspath(p)) != str(cache_dir) for p in paths):
+        raise AssertionError(f"[build] libraries {paths} outside the cache {cache_dir}")
+    log(f"[build] the compilation cache (cache.enable_compilation_cache): {cache_dir}; the mesh "
+        f"core {core}")
     functions = {}
     for name, info in built.items():
         log(f"[build] {SOURCES[name]} -> {info['path']} in {info['seconds']:.1f} s")
@@ -1891,6 +1930,7 @@ def phase_gnn(smi, checks, bench_sample) -> dict:
             "rollout_ms": serving["rollout_ms"], "train_step_ms": train["step_ms"],
             "cache": serving["cache"], "spec": sample.spec, "banded": banded,
             "baselines": baselines, "epoch_s": [r["epoch_time"] for r in run["history"]],
+            "sample": sample,
             "eval_s_per_sim": run["eval_summary"]["mean_prediction_time_s"]}
 
 
@@ -2522,6 +2562,7 @@ def phase_ring(smi, checks, sample, cfg, params) -> dict:
 # ---------------------------------------------------------------- phase 14
 MESH_SHAPE = (4, 2)
 MESH_CONFIG = "configs/multichip.yaml"
+MESH_CLI_CUTS = {("trainer_options", "max_epochs"): 2}
 MESH_BATCH = 4
 
 
@@ -2661,6 +2702,155 @@ def read_history(run_dir) -> list:
         return [json.loads(line) for line in f]
 
 
+def bf16_ulps(own) -> float:
+    """Two bf16 ulps of a rollout's largest prediction: the limit of a mesh
+    rollout against the graph's one-device rollout (phase 4's)."""
+    return 2 * 2.0 ** -8 * float(own.abs().max())
+
+
+def mesh_train_step(cfg, params, apply_fn, samples, placed, per_step, through) -> dict:
+    """(a), (f): the bench train step (6-step pushforward, remat) on a
+    ``MeshBatch``: its float32 loss and gradients against the one-device
+    step on the union of ``samples`` (``hold_ring_grads``' limits), then the
+    bf16 step counted by ``(kernel, Nd, Ns)`` against ``per_step`` (a model
+    step's hop launches) and timed as phase 8's."""
+    from mswe_gnn_tpu_torch.bench_problem import BenchTrainStep
+    from mswe_gnn_tpu_torch.graph import concat_graphs
+    from mswe_gnn_tpu_torch.training.train import (TrainerOptions, clone_tree, loss_and_grads,
+                                                   make_optimizer)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    opts = TrainerOptions(batch_size=len(samples), velocity_scaler=7.0, remat=True)
+    union = concat_graphs(samples).to(torch.device("cuda", 0))
+    with deterministic("mesh"):
+        args = (clone_tree(params), cfg32)
+        mesh_grads = loss_and_grads(apply_fn, *args, placed, 6, opts, True)
+        single_grads = loss_and_grads(apply_fn, *args, union, 6, opts, True)
+        nudged = union.replace(x_dynamic=union.x_dynamic * (1 + 2.0 ** -23))
+        nudged_grads = loss_and_grads(apply_fn, *args, nudged, 6, opts, True)
+    grads = hold_ring_grads(mesh_grads, single_grads, nudged_grads, None, 6, phase="mesh",
+                            through=through)
+    check_first_grads("mesh", *mesh_grads)
+    expected = collections.Counter()
+    for (kernel, nd, ns), n in per_step.items():
+        expected[kernel, nd, ns] += 2 * n * 6
+        expected[kernel + "_bwd", nd, ns] += n * 6
+    p = clone_tree(params)
+    optimizer = make_optimizer(opts, steps_per_epoch=1)
+    step = BenchTrainStep(apply_fn, cfg, p, placed, opts, optimizer, optimizer.init(p))
+    launches, step_ms, _, peak = timed_train_steps("mesh", step, expected)
+    return {"grads": grads, "launches": launches, "step_ms": step_ms, "peak_gib": peak}
+
+
+def mesh_rollout(what, cfg, params, apply_fn, samples, placed, per_step, limit,
+                 fixed_sums=False, reps=3) -> dict:
+    """(b), (f), (g): the full ``rollout_batch`` of a ``MeshBatch`` of
+    ``samples``: its launches held against ``per_step`` (a model step's hop
+    launches) x steps, every graph checked as in phase 4 and held against
+    its own one-device rollout at step 0 and over all steps within
+    ``limit(own rollout)``, then timed (median of ``reps``, CUDA events;
+    none without ``reps``). ``fixed_sums``: both rollouts of the comparison run under deterministic
+    algorithms, so that ``index_add`` sums each segment in edge order on
+    both sides instead of by float32 atomics (learned pooling's segment
+    mean: with atomics the bf16 rollouts drift apart by chance); the timed
+    ones do not."""
+    from mswe_gnn_tpu_torch.training.rollout import rollout, rollout_batch
+
+    dev = torch.device("cuda", 0)
+    steps = samples[0].y.shape[-1]
+    reset_all_launches()
+    with deterministic("mesh") if fixed_sums else contextlib.nullcontext():
+        preds = rollout_batch(apply_fn, params, cfg, placed, steps)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        own = [rollout(apply_fn, params, cfg, g, steps, device=dev) for g in samples]
+    hold_launches("mesh", f"the {steps}-step rollout_batch{what}", launches,
+                  collections.Counter({k: v * steps for k, v in per_step.items()}))
+    errs = []
+    for i, g in enumerate(samples):
+        check_rollout(f"[mesh] graph {i} of the rollout_batch{what}", preds[i], g.to(dev), steps)
+        errs.append((float((preds[i][..., 0] - own[i][..., 0]).abs().max()),
+                     float((preds[i] - own[i]).abs().max()), limit(own[i])))
+    log(f"[mesh] rollout_batch{what} of {len(samples)} on the mesh vs each graph's one-device "
+        "rollout (step 0, all steps, limit): "
+        + "; ".join(f"graph {i} {a:.3e}, {b:.3e} (limit {lim:.3e})"
+                    for i, (a, b, lim) in enumerate(errs)))
+    if not all(a <= lim and b <= lim for a, b, lim in errs):
+        raise AssertionError(f"[mesh] a graph's rollout{what} on the mesh disagrees with its own")
+    if not reps:
+        return {"launches": launches, "errs": errs}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    event_ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        rollout_batch(apply_fn, params, cfg, placed, steps)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    rollout_ms = statistics.median(event_ms)
+    log(f"[mesh] {steps}-step rollout_batch{what} of {len(samples)} on the mesh: "
+        f"{rollout_ms:.1f} ms median of {reps} (CUDA events "
+        f"{', '.join(f'{t:.1f}' for t in event_ms)} ms) -> "
+        f"{rollout_ms / 1e3 / len(samples):.4f} s a simulation")
+    return {"launches": launches, "rollout_ms": rollout_ms, "errs": errs}
+
+
+def mesh_cli(what, cfg_yaml, tmp, checks) -> dict:
+    """(c), (h): ``cfg_yaml`` (a multichip.yaml) through ``main train`` and
+    ``main eval`` with ``--device`` 8 x ``cuda:0`` in ``tmp``, under
+    deterministic algorithms (autograd's ``index_add`` otherwise adds by
+    atomics, and Adam turns a last-bit difference in a near-zero gradient
+    into a full step): every file written, a finite 2-epoch history, ELL
+    forward and backward launched, the eval summary the training one within
+    1e-5, and every launched row-block shape held bit-equal (into
+    ``checks``)."""
+    import yaml
+
+    n_data, n_graph = MESH_SHAPE
+    devices = ",".join(["cuda:0"] * (n_data * n_graph))
+    key = "mesh" + what.replace(" ", "_")
+    cfg_path = os.path.join(tmp, "multichip.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg_yaml, f)
+    train_dir = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), deterministic("mesh"):
+        train = cli_run(["train", "--config", cfg_path, "--out", train_dir, "--device", devices])
+    cli_s = time.perf_counter() - t0
+    missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(train_dir, f))]
+    history = read_history(train_dir)
+    launched = by_kernel(train)
+    if (missing or "device mesh: data=4 x graph=2" not in buf.getvalue()
+            or [r["epoch"] for r in history] != [0, 1]
+            or not all(math.isfinite(r["train_loss"]) for r in history)
+            or not (launched["hop"] and launched["hop_bwd"])):
+        raise AssertionError(f"[mesh] train of {MESH_CONFIG}{what}: missing {missing}, history "
+                             f"{history}, launched {launched}: {buf.getvalue()[-3000:]}")
+    evaluated = cli_run(["eval", "--config", cfg_path, "--ckpt", os.path.join(train_dir, "best"),
+                         "--out", os.path.join(tmp, "eval"), "--device", devices])
+    train_summary = read_json(os.path.join(train_dir, "summary.json"))
+    eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
+    worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
+                if not is_timing_key(k))
+    if worst >= 1e-5:
+        raise AssertionError(f"[mesh] eval{what} {eval_summary} != train {train_summary}")
+    log(f"[mesh] {MESH_CONFIG}{what} (F={cfg_yaml['models']['hid_features']}, "
+        f"K={cfg_yaml['models']['K']}, batch_layout vmap) on a 4 x 2 mesh of cuda:0: train "
+        f"{cli_s:.1f} s in all; epochs "
+        + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, "
+                    f"{r['epoch_time']:.2f} s)" for r in history)
+        + f"; every file written; eval of the new best: the training summary within "
+        f"{worst:.2e}; launched train {launched}, eval {by_kernel(evaluated)}")
+    tables = mesh_cli_tables(cfg_yaml, os.path.join(train_dir, "best"), n_graph,
+                             cfg_yaml["trainer_options"]["batch_size"])
+    hold_tables(checks, "mesh", f"{key}_cli_train", tables, train)
+    hold_tables(checks, "mesh", f"{key}_cli_eval", tables, evaluated)
+    return {"cfg_path": cfg_path, "history": history, "train": train, "eval": evaluated,
+            "seconds": cli_s}
+
+
 def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
     """Data x graph parallelism on the card, every mesh entry ``cuda:0``:
     (a) the bench train step on a 4 x 2 mesh, a stacked batch of 4 distinct
@@ -2672,17 +2862,10 @@ def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
     at data 2 against data 1 on the bench graph, and
     ``configs/ring_halo.yaml`` at its 8 parts falling back to the mesh.
     Every launched shape held against the plain hop (into ``checks``)."""
-    import subprocess
-    import yaml
-
     from mswe_gnn_tpu_torch import main as cli
-    from mswe_gnn_tpu_torch.bench_problem import BenchTrainStep
-    from mswe_gnn_tpu_torch.graph import concat_graphs, stack_graphs
+    from mswe_gnn_tpu_torch.graph import stack_graphs
     from mswe_gnn_tpu_torch.parallel.dist_train import make_dist_apply_fn
     from mswe_gnn_tpu_torch.parallel.sharding import make_mesh, shard_batch
-    from mswe_gnn_tpu_torch.training.rollout import rollout, rollout_batch
-    from mswe_gnn_tpu_torch.training.train import (TrainerOptions, clone_tree, loss_and_grads,
-                                                   make_optimizer)
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2702,28 +2885,10 @@ def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
 
     # (a) the train step: float32 loss and gradients against one device,
     # then the bf16 step counted and timed as phase 8's
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    opts = TrainerOptions(batch_size=MESH_BATCH, velocity_scaler=7.0, remat=True)
-    union = concat_graphs(samples).to(dev)
-    with deterministic("mesh"):
-        args = (clone_tree(params), cfg32)
-        mesh_grads = loss_and_grads(apply_fn, *args, placed, 6, opts, True)
-        single_grads = loss_and_grads(apply_fn, *args, union, 6, opts, True)
-        nudged = union.replace(x_dynamic=union.x_dynamic * (1 + 2.0 ** -23))
-        nudged_grads = loss_and_grads(apply_fn, *args, nudged, 6, opts, True)
-    out["train_grads_f32"] = hold_ring_grads(
-        mesh_grads, single_grads, nudged_grads, n_data * n_graph, 6, phase="mesh",
-        through=f"a {n_data} x {n_graph} mesh")
-    check_first_grads("mesh", *mesh_grads)
-    expected = collections.Counter()
-    for (kernel, nd, ns), n in per_step.items():
-        expected[kernel, nd, ns] += 2 * n * 6
-        expected[kernel + "_bwd", nd, ns] += n * 6
-    p = clone_tree(params)
-    optimizer = make_optimizer(opts, steps_per_epoch=1)
-    step = BenchTrainStep(apply_fn, cfg, p, placed, opts, optimizer, optimizer.init(p))
-    paths["mesh_train_step"], out["train_step_ms"], _, out["train_peak_gib"] = \
-        timed_train_steps("mesh", step, expected)
+    step = mesh_train_step(cfg, params, apply_fn, samples, placed, per_step,
+                           f"a {n_data} x {n_graph} mesh")
+    paths["mesh_train_step"], out["train_step_ms"] = step["launches"], step["step_ms"]
+    out["train_peak_gib"] = step["peak_gib"]
     out["place_ms"], out["plan_build_ms"] = time_mesh_placement(cfg, samples, mesh, placed)
     log(f"[mesh] the placement a trainer makes a step (place the batch, look up each row's "
         f"model, kept across batches): {out['place_ms']:.2f} ms; with each row's model built "
@@ -2731,92 +2896,20 @@ def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
         f"(a) done {time.perf_counter() - t_phase:.1f} s into the phase")
 
     # (b) the batched rollout on the mesh against each graph's own rollout
-    steps = sample.y.shape[-1]
-    reset_all_launches()
-    preds = rollout_batch(apply_fn, params, cfg, placed, steps)
-    torch.cuda.synchronize()
-    paths["mesh_serving"] = read_launches()
-    hold_launches("mesh", f"the {steps}-step rollout_batch", paths["mesh_serving"],
-                  collections.Counter({k: v * steps for k, v in per_step.items()}))
-    errs = []
-    for i, g in enumerate(samples):
-        check_rollout(f"[mesh] graph {i} of the rollout_batch", preds[i], g.to(dev), steps)
-        own = rollout(apply_fn, params, cfg, g, steps, device=dev)
-        top = float(own.abs().max())
-        errs.append((float((preds[i][..., 0] - own[..., 0]).abs().max()),
-                     float((preds[i] - own).abs().max()), 2 * 2.0 ** -8 * top))
-    log(f"[mesh] rollout_batch of {MESH_BATCH} on the mesh vs each graph's one-device rollout "
-        "(step 0, all steps, limit two bf16 ulps of the graph's largest prediction): "
-        + "; ".join(f"graph {i} {a:.3e}, {b:.3e} (limit {lim:.3e})"
-                    for i, (a, b, lim) in enumerate(errs)))
-    if not all(b <= lim for _, b, lim in errs):
-        raise AssertionError("[mesh] a graph's rollout on the mesh disagrees with its own")
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    event_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        start.record()
-        rollout_batch(apply_fn, params, cfg, placed, steps)
-        end.record()
-        end.synchronize()
-        event_ms.append(start.elapsed_time(end))
-    out["rollout_ms"] = statistics.median(event_ms)
-    log(f"[mesh] {steps}-step rollout_batch of {MESH_BATCH} on the mesh: "
-        f"{out['rollout_ms']:.1f} ms median of 3 (CUDA events "
-        f"{', '.join(f'{t:.1f}' for t in event_ms)} ms) -> "
-        f"{out['rollout_ms'] / 1e3 / MESH_BATCH:.4f} s a simulation; (b) done "
-        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+    served = mesh_rollout("", cfg, params, apply_fn, samples, placed, per_step, bf16_ulps)
+    paths["mesh_serving"], out["rollout_ms"] = served["launches"], served["rollout_ms"]
+    log(f"[mesh] (b) done {time.perf_counter() - t_phase:.1f} s into the phase")
     hold_tables(checks, "mesh", "mesh_train_step", mesh_tables(plans), paths["mesh_train_step"])
     hold_tables(checks, "mesh", "mesh_serving", mesh_tables(plans), paths["mesh_serving"])
 
     # (c) configs/multichip.yaml through the CLI on the 4 x 2 mesh of cuda:0
     root = os.path.dirname(os.path.abspath(__file__))
-    devices = ",".join(["cuda:0"] * (n_data * n_graph))
     with cli_workdir("smoke_mesh_") as tmp:
-        cfg_yaml = cut_config("mesh", MESH_CONFIG, {("trainer_options", "max_epochs"): 2})
-        cfg_path = os.path.join(tmp, "multichip.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(cfg_yaml, f)
-        train_dir = os.path.join(tmp, "train")
-        t0 = time.perf_counter()
-        buf = io.StringIO()
-        # deterministic algorithms here and in (d)'s processes: autograd's
-        # index_add otherwise adds by atomics, and Adam turns a last-bit
-        # difference in a near-zero gradient into a full step
-        with contextlib.redirect_stdout(buf), deterministic("mesh"):
-            paths["mesh_cli_train"] = cli_run(["train", "--config", cfg_path, "--out", train_dir,
-                                               "--device", devices])
-        cli_s = time.perf_counter() - t0
-        missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(train_dir, f))]
-        history = read_history(train_dir)
-        launched = by_kernel(paths["mesh_cli_train"])
-        if (missing or "device mesh: data=4 x graph=2" not in buf.getvalue()
-                or [r["epoch"] for r in history] != [0, 1]
-                or not all(math.isfinite(r["train_loss"]) for r in history)
-                or not (launched["hop"] and launched["hop_bwd"])):
-            raise AssertionError(f"[mesh] train of {MESH_CONFIG}: missing {missing}, history "
-                                 f"{history}, launched {launched}: {buf.getvalue()[-3000:]}")
-        paths["mesh_cli_eval"] = cli_run(["eval", "--config", cfg_path, "--ckpt",
-                                          os.path.join(train_dir, "best"), "--out",
-                                          os.path.join(tmp, "eval"), "--device", devices])
-        train_summary = read_json(os.path.join(train_dir, "summary.json"))
-        eval_summary = read_json(os.path.join(tmp, "eval", "summary.json"))
-        worst = max(abs(eval_summary[k] - v) for k, v in eval_summary.items()
-                    if not is_timing_key(k))
-        if worst >= 1e-5:
-            raise AssertionError(f"[mesh] eval {eval_summary} != train {train_summary}")
+        cfg_yaml = cut_config("mesh", MESH_CONFIG, MESH_CLI_CUTS)
+        run = mesh_cli("", cfg_yaml, tmp, checks)
+        cfg_path, history = run["cfg_path"], run["history"]
+        paths["mesh_cli_train"], paths["mesh_cli_eval"] = run["train"], run["eval"]
         out["cli_epoch_s"] = [r["epoch_time"] for r in history]
-        log(f"[mesh] {MESH_CONFIG} (F={cfg_yaml['models']['hid_features']}, "
-            f"K={cfg_yaml['models']['K']}, batch_layout vmap) on a 4 x 2 mesh of cuda:0: train "
-            f"{cli_s:.1f} s in all; epochs "
-            + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, "
-                        f"{r['epoch_time']:.2f} s)" for r in history)
-            + f"; every file written; eval of the new best: the training summary within "
-            f"{worst:.2e}; launched train {launched}, eval {by_kernel(paths['mesh_cli_eval'])}")
-        tables = mesh_cli_tables(cfg_yaml, os.path.join(train_dir, "best"), n_graph,
-                                 cfg_yaml["trainer_options"]["batch_size"])
-        for path in ("mesh_cli_train", "mesh_cli_eval"):
-            hold_tables(checks, "mesh", path, tables, paths[path])
 
         # (d) the same run as two processes, each on cuda:0 (2 rows x 2)
         env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -2917,10 +3010,152 @@ def phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring_graph) -> dict:
         + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, {r['epoch_time']:.2f} s)"
                     for r in history)
         + f"; launched {launched}")
-    out.update(launches=paths, plans=plans, per_step=per_step)
+    out.update(launches=paths, plans=plans, per_step=per_step, mesh=mesh, samples=samples,
+               placed=placed)
     log(f"[mesh] summary: bf16 train step {out['train_step_ms']:.1f} ms, rollout_batch "
         f"{out['rollout_ms']:.1f} ms on the 4 x 2 mesh; {smi}; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def mesh_baselines(gnn_sample, mesh) -> dict:
+    """(g) pareto_gnn's Cheb / TAG / GAT at its width (F=64, K=10, 2 layers,
+    float32) on a stacked batch of 4 distinct samples of the single-scale
+    bench graph, on the mesh: ``rollout_batch`` held against each graph's
+    one-device rollout within 1e-4 at step 0 and over all steps
+    (``index_add`` adds with atomics on the card, as phase 11 (c)) and
+    timed; the float32 train step (6-step pushforward, remat, ``multiscale``
+    False) against the one-device step on the stacked batch: the loss within
+    1e-5 relative, every leaf within 1e-4 max|leaf|. No hop is launched."""
+    from mswe_gnn_tpu_torch.bench_problem import build_pareto_gnn_model
+    from mswe_gnn_tpu_torch.graph import stack_graphs
+    from mswe_gnn_tpu_torch.parallel.sharding import shard_batch
+    from mswe_gnn_tpu_torch.training.train import TrainerOptions, loss_and_grads
+
+    dev = torch.device("cuda", 0)
+    samples = distinct_bench_samples(gnn_sample, MESH_BATCH)
+    stacked = stack_graphs(samples).to(dev)
+    placed = shard_batch(stacked, mesh)
+    opts = TrainerOptions(batch_size=MESH_BATCH, velocity_scaler=7.0, remat=True)
+    out, launches = {}, collections.Counter()
+    for kind in BASELINES:
+        cfg, params, apply_fn = build_pareto_gnn_model(gnn_sample, device=dev, type_GNN=kind)
+        served = mesh_rollout(f" of {kind}", cfg, params, apply_fn, samples, placed,
+                              collections.Counter(), lambda own: 1e-4)
+        reset_all_launches()
+        with deterministic("mesh"):
+            got = loss_and_grads(apply_fn, params, cfg, placed, 6, opts, False)
+            want = loss_and_grads(apply_fn, params, cfg, stacked, 6, opts, False)
+        torch.cuda.synchronize()
+        launches += served["launches"] + read_launches()
+        r = compare_grads(*got, *want)
+        log(f"[mesh] (g) {kind} float32 train step on the mesh vs one device: loss rel diff "
+            f"{r['loss_rel']:.3e} (limit 1e-5), worst leaf max|diff|/max|leaf| "
+            f"{r['worst_leaf']:.3e} (limit 1e-4); worst leaves "
+            + "; ".join(f"{n} {q:.3e}" for n, q, _, _ in r["worst"]))
+        check_first_grads("mesh", *got)
+        if not (r["loss_rel"] <= 1e-5 and r["leaves_within"]):
+            raise AssertionError(f"[mesh] (g) the {kind} train step on the mesh disagrees with "
+                                 "one device")
+        out[kind] = {"rollout_ms": served["rollout_ms"], "errs": served["errs"],
+                     "loss_rel": r["loss_rel"], "worst_leaf": r["worst_leaf"]}
+    if sum(launches.values()):
+        raise AssertionError(f"[mesh] (g) the baselines launched hop kernels: {dict(launches)}")
+    log("[mesh] (g) the baselines launched no hop kernel")
+    return {"baselines": out, "launches": launches}
+
+
+def profiling_and_cache(sample, cfg, params, apply_fn, serving) -> dict:
+    """(i) ``utils/profiling.trace`` around one bench model step writes a
+    Chrome trace holding CUDA kernels; ``utils/profiling.timed`` of phase
+    4's rollout beside phase 4's own median."""
+    from mswe_gnn_tpu_torch.models import prepare_graph
+    from mswe_gnn_tpu_torch.training.rollout import rollout
+    from mswe_gnn_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    graph = sample.to(dev)
+    with torch.inference_mode():
+        gt = first_step(prepare_graph(params, cfg, graph))
+        apply_fn(params, cfg, gt)
+        with cli_workdir("smoke_trace_") as tmp:
+            with profiling.trace(os.path.join(tmp, "trace")) as path:
+                apply_fn(params, cfg, gt)
+            size = os.path.getsize(path)
+            events = read_json(path)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    hops = [e for e in kernels if "hop_fwd_kernel" in e.get("name", "")]
+    log(f"[mesh] (i) profiling.trace of one bench model step: {size} bytes, {len(events)} "
+        f"events, {len(kernels)} CUDA kernels ({len(hops)} ELL hop forwards)")
+    if not (size and kernels and hops):
+        raise AssertionError("[mesh] (i) the trace holds no CUDA kernel of the model step")
+    steps = sample.y.shape[-1]
+    t = profiling.timed(rollout, apply_fn, params, cfg, graph, steps, dev, reps=3, warmup=1)
+    log(f"[mesh] (i) profiling.timed of phase 4's {steps}-step rollout: median "
+        f"{t['median_s'] * 1e3:.1f} ms (min {t['min_s'] * 1e3:.1f}, mean "
+        f"{t['mean_s'] * 1e3:.1f}; host clock, synchronized); phase 4's own median "
+        f"{serving['rollout_ms']:.1f} ms (CUDA events)")
+    return {"trace_bytes": size, "trace_kernels": len(kernels), "timed": t}
+
+
+def phase_mesh_models(smi, checks, sample, gnn_sample, serving, mesh_, bench_model) -> dict:
+    """Phase 14 (f)-(i), every model on the mesh: (f) the bench MSGNN with
+    learned pooling on (a)'s batch and mesh, its float32 train step against
+    one device, its bf16 step and 47-step ``rollout_batch`` counted by
+    shape (the pooling launches no hop: (a)'s and (b)'s counts) and timed;
+    (g) the baselines (``mesh_baselines``); (h) multichip.yaml with
+    ``learned_pooling`` through the CLI (``mesh_cli``); (i) the profiling
+    helpers on ``bench_model`` (``profiling_and_cache``)."""
+    from mswe_gnn_tpu_torch.bench_problem import build_bench_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    paths, out = {}, {}
+    cfg, params, apply_fn = build_bench_model(sample, device=dev, learned_pooling=True)
+    plans = mesh_plans(mesh_["placed"], cfg)
+    per_step = mesh_hops_per_step(cfg, plans)
+    if per_step != mesh_["per_step"]:
+        raise AssertionError(f"[mesh] (f) learned pooling's row plans launch {dict(per_step)}, "
+                             f"(a)'s {dict(mesh_['per_step'])}")
+    log(f"[mesh] (f) the bench MSGNN with learned pooling on (a)'s {MESH_SHAPE[0]} x "
+        f"{MESH_SHAPE[1]} mesh: {sum(per_step.values())} hop launches a model step, (a)'s")
+    step = mesh_train_step(cfg, params, apply_fn, mesh_["samples"], mesh_["placed"], per_step,
+                           "the 4 x 2 mesh with learned pooling")
+    paths["mesh_lp_train_step"], out["lp_train_step_ms"] = step["launches"], step["step_ms"]
+    served = mesh_rollout(" with learned pooling", cfg, params, apply_fn, mesh_["samples"],
+                          mesh_["placed"], per_step, bf16_ulps, fixed_sums=True)
+    paths["mesh_lp_serving"], out["lp_rollout_ms"] = served["launches"], served["rollout_ms"]
+    # the same in float32, where rounding alone moves a rollout far less
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    paths["mesh_lp_serving_f32"] = mesh_rollout(
+        " with learned pooling in float32", cfg32, params, apply_fn, mesh_["samples"],
+        mesh_["placed"], per_step, lambda own: 1e-4 * float(own.abs().max()), fixed_sums=True,
+        reps=0)["launches"]
+    for path in ("mesh_lp_train_step", "mesh_lp_serving", "mesh_lp_serving_f32"):
+        hold_tables(checks, "mesh", path, mesh_tables(plans), paths[path])
+    log(f"[mesh] (f) done in {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    base = mesh_baselines(gnn_sample, mesh_["mesh"])
+    paths["mesh_baselines"], out["baselines"] = base["launches"], base["baselines"]
+    log(f"[mesh] (g) done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with cli_workdir("smoke_mesh_lp_") as tmp:
+        cfg_yaml = cut_config("mesh", MESH_CONFIG, MESH_CLI_CUTS)
+        log("[mesh] (h) override: models.learned_pooling -> True")
+        cfg_yaml["models"]["learned_pooling"] = True
+        run = mesh_cli(" lp", cfg_yaml, tmp, checks)
+    paths["mesh_lp_cli_train"], paths["mesh_lp_cli_eval"] = run["train"], run["eval"]
+    out["lp_cli_epoch_s"] = [r["epoch_time"] for r in run["history"]]
+    log(f"[mesh] (h) done in {time.perf_counter() - t0:.1f} s")
+
+    out["profiling"] = profiling_and_cache(sample, *bench_model, serving)
+    out["launches"] = paths
+    log(f"[mesh] (f)-(i) summary: learned pooling bf16 train step {out['lp_train_step_ms']:.1f} "
+        f"ms, rollout_batch {out['lp_rollout_ms']:.1f} ms; baselines rollout_batch "
+        + ", ".join(f"{k} {v['rollout_ms']:.1f} ms" for k, v in out["baselines"].items())
+        + f"; {smi}; (f)-(i) took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3017,6 +3252,8 @@ def main() -> None:
     data = phase_data(smi, checks)
     ring = phase_ring(smi, checks, sample, cfg, params)
     mesh_ = phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring["graph"])
+    models = phase_mesh_models(smi, checks, sample, gnn["sample"], serving, mesh_,
+                               (cfg, params, apply_fn))
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -3042,12 +3279,15 @@ def main() -> None:
                                     mesh_processor_keys(mesh_["plans"]), "mesh block",
                                     "row table", 7000)
     paths.update(mesh_["launches"])
+    paths.update(models["launches"])
     path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
                                  "gnn_train_step", "gnn_cli_train", "gnn_cli_eval",
                                  "data_cli_train", "data_cli_eval", "data_map_train",
                                  "data_map_eval", "data_pickle_train", "ring_serving_f32",
                                  "ring_overlap_step", "ring_wide_step", "ring_cli_train",
-                                 "mesh_cli_train", "mesh_cli_eval", "mesh_ring_fallback"),
+                                 "mesh_cli_train", "mesh_cli_eval", "mesh_ring_fallback",
+                                 "mesh_baselines", "mesh_lp_cli_train", "mesh_lp_cli_eval",
+                                 "mesh_lp_serving_f32"),
                                 "float32")
     timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
@@ -3095,6 +3335,12 @@ def main() -> None:
         k["mesh_place_ms"] = mesh_["place_ms"]
         k["mesh_cli_epoch_s"] = mesh_["cli_epoch_s"]
         k["mesh_two_process"] = mesh_["two_process"]
+        k["mesh_lp_train_step_ms"] = models["lp_train_step_ms"]
+        k["mesh_lp_cli_epoch_s"] = models["lp_cli_epoch_s"]
+    kernels[0]["mesh_lp_rollout_batch_ms"] = models["lp_rollout_ms"]
+    kernels[0]["mesh_baseline_rollout_batch_ms"] = {
+        k: v["rollout_ms"] for k, v in models["baselines"].items()}
+    kernels[0]["rollout_timed_s"] = models["profiling"]["timed"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

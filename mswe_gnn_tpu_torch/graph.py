@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mswe_gnn_tpu_torch import tree_to
+from mswe_gnn_tpu_torch import native, tree_to
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -351,7 +351,20 @@ def build_edge_slot_table(edge_index: np.ndarray, edge_mask: np.ndarray,
                           d_fixed: int = 0):
     """Host-side ELL table: for each node, the ids of its incoming (real)
     edges, padded to the max in-degree rounded up to ``round_to`` (or to
-    ``d_fixed`` when set). Aggregation then becomes gathers, no scatter."""
+    ``d_fixed`` when set). Aggregation then becomes gathers, no scatter.
+    Without ``d_fixed`` the mesh core builds it (``native.build_ell_table``,
+    as JAX graph.py:398-402; it raises where it cannot be built), else the
+    plain version ``edge_slot_table_reference``."""
+    if not d_fixed:
+        return native.build_ell_table(np.asarray(edge_index[1]),
+                                      np.asarray(edge_mask, np.float32), num_nodes, round_to)
+    return edge_slot_table_reference(edge_index, edge_mask, num_nodes, round_to, d_fixed)
+
+
+def edge_slot_table_reference(edge_index: np.ndarray, edge_mask: np.ndarray,
+                              num_nodes: int, round_to: int = 4, d_fixed: int = 0):
+    """The plain version of ``build_edge_slot_table``: a Python loop over
+    the real edges."""
     dst = np.asarray(edge_index[1])
     real = np.asarray(edge_mask) > 0
     indeg = np.bincount(dst[real], minlength=num_nodes)

@@ -30,7 +30,9 @@ training over devices, listed by ``--device`` as a comma-separated list
   test graphs are ring-reordered, batches hold one graph. ``data`` > 1
   gives the data = 1 result (JAX replicates the ring over ``data``; the
   port runs it once). For another model, or where the ring plan fails, the
-  run falls back to the GSPMD mesh and says so, as JAX does.
+  run falls back to the GSPMD mesh and says so, as JAX does; an MSGNN with
+  learned pooling whose ring plan holds raises, as JAX's ring path
+  asserts.
 
 The test evaluation runs on the first device, as JAX's runs unsharded.
 
@@ -72,6 +74,7 @@ import torch
 
 from mswe_gnn_tpu_torch import config as config_lib
 from mswe_gnn_tpu_torch import resolve_device
+from mswe_gnn_tpu_torch.cache import enable_compilation_cache
 from mswe_gnn_tpu_torch.data.dataset import (fit_dataset_scalers, make_spec,
                                              process_record, to_temporal_samples,
                                              union_spec)
@@ -667,6 +670,7 @@ def main(argv=None) -> int:
                          "--dist-num-processes: one host)")
     args = ap.parse_args(argv)
     distributed = init_distributed(args)
+    enable_compilation_cache()
     try:
         cfg = config_lib.read_config(args.config) if args.config else {}
         cfg = config_lib.fix_dotted_keys(cfg)

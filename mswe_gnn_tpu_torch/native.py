@@ -1,8 +1,11 @@
 """The port's loader of the native mesh core (``native/meshcore.cpp`` and
 ``native/delaunay.cpp``, the constrained Delaunay engine), bound with
-``ctypes``: the three entry points that ``data/triangulate.py`` needs, and the
+``ctypes``: the three entry points that ``data/triangulate.py`` needs, the
 BFS node partitioner of the ring-halo path (``bfs_partition``, with its
-numpy version ``bfs_partition_reference``).
+numpy version ``bfs_partition_reference``), the ELL slot table that
+``graph.build_edge_slot_table`` takes where its width is not fixed
+(``build_ell_table``; the Python loop there is its plain version) and the
+midpoint refinement ``refine_midpoint``.
 
 The library is compiled with ``g++`` at first use, with ``native/Makefile``'s
 own flags, into ``_build/`` beside the package (listed in ``.gitignore``),
@@ -75,9 +78,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.laplacian_smooth.argtypes = [
         f64p, ctypes.c_int64, i64p, ctypes.c_int64, u8p, ctypes.c_int64]
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     lib.bfs_partition.restype = None
     lib.bfs_partition.argtypes = [
         i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i32p, i32p]
+    lib.build_ell_table.restype = ctypes.c_int64
+    lib.build_ell_table.argtypes = [
+        i64p, f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.refine_midpoint.restype = ctypes.c_int64
+    lib.refine_midpoint.argtypes = [
+        f64p, ctypes.c_int64, i64p, ctypes.c_int64, f64p, i64p, i64p]
 
 
 def _check_index(idx: np.ndarray, n: int, width: int, what: str) -> None:
@@ -205,3 +216,48 @@ def bfs_partition_reference(edge_index: np.ndarray, num_nodes: int, n_parts: int
                     q.append(v)
     block = -(-num_nodes // n_parts)
     return (order // block).astype(np.int32), order
+
+
+def build_ell_table(dst: np.ndarray, edge_mask: np.ndarray, num_nodes: int,
+                    round_to: int = 4) -> Tuple[np.ndarray, np.ndarray]:
+    """The ELL slot table of the edges' destinations ``dst [E]`` (JAX
+    native.py:107-123): for each node its real incoming edges (``edge_mask``
+    > 0) in edge order, padded to the largest in-degree rounded up to
+    ``round_to`` (at least ``round_to``) -> ``(table [N, D] int32, mask [N, D]
+    float32)``. Two calls into the library: the first counts the widest
+    row, the second fills the table."""
+    lib = load()
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    mask = np.ascontiguousarray(edge_mask, dtype=np.float32)
+    if mask.shape != dst.shape or dst.ndim != 1:
+        raise ValueError(f"dst and edge_mask: expected [E] each, got {list(dst.shape)} and "
+                         f"{list(mask.shape)}")
+    _check_index(dst[:, None], max(num_nodes, 1), 1, "dst")
+    max_deg = lib.build_ell_table(dst, mask, len(dst), num_nodes, 0, None, None)
+    d = max(-(-max(int(max_deg), 1) // round_to) * round_to, round_to)
+    table = np.zeros((num_nodes, d), np.int32)
+    out_mask = np.zeros((num_nodes, d), np.float32)
+    if lib.build_ell_table(dst, mask, len(dst), num_nodes, d, table.ctypes.data,
+                           out_mask.ctypes.data) < 0:
+        raise RuntimeError("build_ell_table: a row holds more edges than the first call "
+                           "counted")
+    return table, out_mask
+
+
+def refine_midpoint(points: np.ndarray, triangles: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Red (4-way) midpoint refinement with deduplicated edge midpoints (JAX
+    native.py:212-226, the library's path) -> ``(points [n + m, 2], triangles
+    [4 n_tris, 3])``, ``m`` the number of distinct edges."""
+    lib = load()
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    tris = np.ascontiguousarray(triangles, dtype=np.int64)
+    if pts.ndim != 2 or pts.shape[1] != 2:
+        raise ValueError(f"points: expected [n, 2], got {list(pts.shape)}")
+    _check_index(tris, len(pts), 3, "triangles")
+    n, nt = len(pts), len(tris)
+    pts_out = np.empty((n + 3 * nt, 2), np.float64)
+    tris_out = np.empty((4 * nt, 3), np.int64)
+    n_out = np.zeros(1, np.int64)
+    m = lib.refine_midpoint(pts, n, tris.reshape(-1), nt, pts_out, tris_out.reshape(-1), n_out)
+    return pts_out[:int(n_out[0])].copy(), tris_out[:m].copy()

@@ -35,7 +35,7 @@ for bit.
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -923,16 +923,23 @@ def make_dist_swegnn_wide(devices: Sequence, cfg: SWEGNNConfig, width: int, ring
     return layer
 
 
-def _encode_x(params: list, cfg, x_static: list, x_dynamic: list):
-    """Each part's input rows -> (x0, encoded static, encoded dynamic), the
-    static / dynamic split with the water level as a static column."""
+def _split_x(cfg, x_static: torch.Tensor, x_dynamic: torch.Tensor):
+    """A part's input rows -> (x0, static, dynamic): the static / dynamic
+    split with the water level as a static column."""
     n_s = cfg.static_node_features - int(cfg.with_WL)
+    x = torch.cat([x_static, x_dynamic], dim=-1)
+    s, d = x[:, :n_s], x[:, n_s:]
+    if cfg.with_WL:
+        s = torch.cat([s, (s[:, -1] + d[:, -cfg.out_dim])[:, None]], dim=-1)
+    return x, s, d
+
+
+def _encode_x(params: list, cfg, x_static: list, x_dynamic: list):
+    """Each part's input rows -> (x0, encoded static, encoded dynamic)
+    (``_split_x``)."""
     x0, xs, xd = [], [], []
     for pp, a, b in zip(params, x_static, x_dynamic):
-        x = torch.cat([a, b], dim=-1)
-        s, d = x[:, :n_s], x[:, n_s:]
-        if cfg.with_WL:
-            s = torch.cat([s, (s[:, -1] + d[:, -cfg.out_dim])[:, None]], dim=-1)
+        x, s, d = _split_x(cfg, a, b)
         x0.append(x)
         xs.append(apply_mlp(pp["static_node_encoder"], s, activation=cfg.mlp_activation))
         xd.append(apply_mlp(pp["dynamic_node_encoder"], d, activation=cfg.mlp_activation))
@@ -1053,9 +1060,9 @@ def encode_dist_edges(reps: list, cfg, dist: dict) -> list:
     return ea_b
 
 
-def make_dist_msgnn_forward(devices: Sequence, cfg):
+def make_dist_msgnn_forward(devices: Sequence, cfg, pool: Optional[Callable] = None):
     """The multiscale MSGNN over the ring (JAX dist_swegnn.py:990-1145; ``cfg``
-    a ``models.msgnn.MSGNNConfig``, mean pooling only):
+    a ``models.msgnn.MSGNNConfig``):
     ``forward(params, dist, ea_b=None) -> per scale, the list of each part's
     [B_i, 2] predictions`` (part p on ``devices[p]``; concatenating every
     scale's parts in order gives the graph's scale-major rows). ``dist`` is
@@ -1066,10 +1073,14 @@ def make_dist_msgnn_forward(devices: Sequence, cfg):
 
     Processors exchange boundary rows a hop (or a window, on a width-W
     plan); pooling and un-pooling exchange rows across adjacent scales'
-    parts."""
-    if cfg.learned_pooling:
+    parts. ``pool(reps, dist, lvl, x_fine, x_coarse) -> each part's pooled
+    coarse block`` replaces the mean pooling (``_pool_cross`` of
+    ``dist["pool"][lvl]``): the row blocks of parallel/gspmd.py pass their
+    learned pooling. The ring path has none, and raises for
+    ``learned_pooling`` as JAX's asserts (dist_swegnn.py:1015)."""
+    if cfg.learned_pooling and pool is None:
         raise ValueError("the ring path covers mean pooling; learned_pooling runs on one "
-                         "device")
+                         "device or on the data x graph mesh (parallel: {mode: gspmd})")
     devices = [torch.device(d) for d in devices]
     L = cfg.num_scales
     ks = cfg.k_schedule
@@ -1100,7 +1111,8 @@ def make_dist_msgnn_forward(devices: Sequence, cfg):
         for i in range(L - 1):
             xd_b[i] = processor(i, i)
             x_down_b[i] = xd_b[i]
-            pooled = _pool_cross(xd_b[i], dist["pool"][i], devices)
+            pooled = (_pool_cross(xd_b[i], dist["pool"][i], devices) if pool is None
+                      else pool(reps, dist, i, xd_b[i], xd_b[i + 1]))
             for j in range(L):
                 xd_b[j] = zeros_b[j]
             xd_b[i + 1] = pooled

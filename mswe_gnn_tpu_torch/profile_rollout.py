@@ -18,8 +18,9 @@ step with the band plan of its one scale and ``multiscale`` False. With ``--trai
 instead, at demo_small's width (configs/demo_small.yaml: F=64, K=4,
 mlp_layers=3, 3 scales) on a synthetic set of 64x64 grids (24 training
 samples, 2-step pushforward, no validation), after two warm-up epochs;
-``steps`` counts its train steps, ``untraced_wall_ms`` times three more
-epochs without the profiler (host clock, each ending in a synchronize),
+``steps`` counts its train steps, ``untraced_wall`` times three more
+epochs without the profiler (``utils/profiling.timed``: seconds, host
+clock, each epoch ending in a synchronize),
 ``resident_mb`` is the device memory held after the warm-up and
 ``peak_mb`` the peak of the traced epoch:
 
@@ -52,6 +53,7 @@ from mswe_gnn_tpu_torch.graph import concat_graphs
 from mswe_gnn_tpu_torch.models import build_model
 from mswe_gnn_tpu_torch.training.rollout import rollout
 from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
+from mswe_gnn_tpu_torch.utils.profiling import timed
 
 
 def device_intervals(prof):
@@ -147,12 +149,7 @@ def main(argv=None) -> None:
     if args.trainer:
         run, steps = trainer_epoch(args.batch, device)
         extra["resident_mb"] = torch.cuda.memory_allocated() / 2 ** 20
-        extra["untraced_wall_ms"] = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            extra["untraced_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        extra["untraced_wall"] = timed(run, reps=3, warmup=0)
         torch.cuda.reset_peak_memory_stats()
     else:
         run, steps = bench_run(args.train, args.batch, device, args.model)

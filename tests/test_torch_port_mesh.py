@@ -288,10 +288,10 @@ def test_trainer_with_mesh_fits(problem, layout):
         assert abs(hist[0][k] - hist[1][k]) < 1e-5, (k, hist)
 
 
-def test_row_model_covers_the_gnn_and_raises_for_the_rest(problem):
-    """The single-scale SWE-GNN split over 3 devices equals its one-device
-    forward; the Cheb baseline and learned pooling raise under graph > 1
-    and a data-parallel step of the baseline (graph = 1) equals its
+def test_row_model_covers_every_model(problem):
+    """The single-scale SWE-GNN split over 3 devices, and the Cheb baseline
+    and learned pooling split over 2 and 3, equal their one-device forwards;
+    a data-parallel step of each of the two (graph = 1) equals its
     one-device step."""
     ps = problem[1]
     g = concat_graphs(distinct(ps, 2))
@@ -301,21 +301,25 @@ def test_row_model_covers_the_gnn_and_raises_for_the_rest(problem):
     model = RowModel(cfg, g, ["cpu"] * 3)
     got = model(params, g, model.encode_edges(params))
     torch.testing.assert_close(got, apply_fn(params, cfg, g), atol=1e-5, rtol=0)
-    for model_cfg in ({"model_type": "GNN", "type_GNN": "GNN_L", "hid_features": 8},
-                      {"model_type": "MSGNN", "learned_pooling": True, "hid_features": 8}):
-        cfg_b, params_b, apply_b = build_model(model_cfg, **kw)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            RowModel(cfg_b, g, ["cpu"] * 2)
     opts = port_train.TrainerOptions(batch_size=4)
     batch = stack_graphs(distinct(ps))
     mesh = sharding.make_mesh(4, 1, CPU8)
-    args = (apply_b, params_b, cfg_b)
-    loss_m, grads_m = port_train.loss_and_grads(*args, sharding.shard_batch(batch, mesh), 2,
-                                                opts, False)
-    loss_1, grads_1 = port_train.loss_and_grads(*args, batch, 2, opts, False)
-    assert abs(float(loss_m) - float(loss_1)) <= 1e-5 * abs(float(loss_1))
-    for a, b in zip(tree_leaves(grads_m), tree_leaves(grads_1)):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    for model_cfg in ({"model_type": "GNN", "type_GNN": "GNN_L", "hid_features": 8},
+                      {"model_type": "MSGNN", "learned_pooling": True, "hid_features": 8}):
+        cfg_b, params_b, apply_b = build_model(model_cfg, **kw)
+        want = apply_b(params_b, cfg_b, g)
+        for parts in (2, 3):
+            model = RowModel(cfg_b, g, ["cpu"] * parts)
+            got = model(params_b, g, model.encode_edges(params_b))
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        args = (apply_b, params_b, cfg_b)
+        multiscale = model_cfg["model_type"] == "MSGNN"
+        loss_m, grads_m = port_train.loss_and_grads(*args, sharding.shard_batch(batch, mesh), 2,
+                                                    opts, multiscale)
+        loss_1, grads_1 = port_train.loss_and_grads(*args, batch, 2, opts, multiscale)
+        assert abs(float(loss_m) - float(loss_1)) <= 1e-5 * abs(float(loss_1))
+        for a, b in zip(tree_leaves(grads_m), tree_leaves(grads_1)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 def test_find_max_batch_size(problem, monkeypatch):
