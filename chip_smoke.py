@@ -176,6 +176,21 @@ Phases, each printing its own lines:
    ``utils/profiling.timed`` of phase 4's rollout is printed beside phase
    4's median. Every shape launched on (a)-(h) held bit-equal to the plain
    versions on every table of it.
+15. reports -- the report and sweep layer: (a) ``main sweep`` of
+   ``configs/pareto.yaml``'s MSGNN at its full width (F=64, mlp_layers 3,
+   float32), only the corpus and the epochs cut (64 -> 12 sims, 140 -> 2
+   epochs, each cut printed), under a stand-in ``wandb`` module (the card
+   has none) whose agent runs two trials (K 5 with ``watch_every`` 1, and
+   K 4): every trial's epoch records (``train_loss``, ``val_loss``,
+   ``val_CSI_005``) on its run, its summary set and its run finished, its
+   ``summary.json`` and ``best``, trial 0's histograms one a parameter leaf
+   and finite, ELL forward and backward launched; (b) ``main eval`` of
+   trial 0's ``best`` with ``--out``: without matplotlib (the card) the
+   line ``report figures skipped: matplotlib is not installed`` printed
+   once and ``summary.json`` alone written, with it the 11 figure files of
+   the JAX test set, non-empty; the summary the training one within 1e-5.
+   Every shape launched on (a) and (b) held against the plain versions on
+   the runs' own unions, as in phase 10.
 
 Then one JSON line describing every kernel. Its ``launches`` is a sum: the
 kernel's launches over every path driven (serving and train step at batch 1,
@@ -185,7 +200,8 @@ and learned-pooling step, phase 12's forced rollout and train step and its
 CLI runs, phase 13's ring rollouts, train step, plan variants and CLI
 run, and phase 14's mesh train step, rollout, CLI train and eval, ring
 steps and fallback run, learned-pooling train step, rollout and CLI train
-and eval, and the baselines), each path counted from 0 just before it runs;
+and eval, and the baselines, and phase 15's sweep and reporting eval), each
+path counted from 0 just before it runs;
 ``launches_by_path`` holds each path's own count, the figure to read for
 one path. Then the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -3159,6 +3175,237 @@ def phase_mesh_models(smi, checks, sample, gnn_sample, serving, mesh_, bench_mod
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+SWEEP_CONFIG = "configs/pareto.yaml"
+SWEEP_CUTS = {("synthetic_data", "n_sims"): 12, ("trainer_options", "max_epochs"): 2}
+SWEEP_ID = "smoke/pareto/stand-in"
+SWEEP_TRIALS = ({"models.K": 5, "models.hid_features": 64, "trainer_options.watch_every": 1},
+                {"models.K": 4, "models.hid_features": 64})
+REPORT_FILES = ("csi_curves.png", "f1_curves.png", "execution_times_box.png",
+                "rollout_best.png", "rollout_worst.png", "fat_best.png", "csi_f1_best.png",
+                "froude_best.png", "conservation_best.png", "rollout_best.gif",
+                "rollout_best_multiscale.gif")
+
+
+class StandInRun:
+    """A sweep trial's run of the stand-in wandb: what the logger sends it."""
+
+    def __init__(self, module, run_id, config):
+        self.module, self.id, self.config = module, run_id, dict(config)
+        self.sweep_id = module.sweep_id
+        self.logged, self.summary, self.finished = [], {}, False
+
+    def log(self, metrics, **kw):
+        if kw:
+            raise AssertionError(f"[reports] a record logged with {kw}: wandb drops a step "
+                                 "behind its own")
+        self.logged.append(dict(metrics))
+
+    def finish(self):
+        self.finished = True
+        if self.module.run is self:
+            self.module.run = None
+
+
+class StandInHistogram:
+    def __init__(self, values):
+        self.values = values
+
+
+def stand_in_wandb(trials):
+    """A ``wandb`` module for a machine without one: ``agent`` runs one trial
+    a config of ``trials``, counting each trial's launches from 0 (in
+    ``launches``); ``init()`` opens the trial's run, a sweep run whose
+    config holds the trial's dotted-key overrides."""
+    import types
+
+    mod = types.ModuleType("wandb")
+    mod.run, mod.sweep_id, mod.Histogram = None, None, StandInHistogram
+    mod.runs, mod.launches = [], []
+
+    def init(**kw):
+        if kw or mod.sweep_id is None:
+            raise AssertionError(f"[reports] wandb.init({kw}) outside a sweep trial")
+        mod.run = StandInRun(mod, f"smoke{len(mod.runs)}", trials[len(mod.runs)])
+        mod.runs.append(mod.run)
+        return mod.run
+
+    def agent(sweep_id, function, count):
+        mod.sweep_id = sweep_id
+        for _ in range(count):
+            reset_all_launches()
+            function()
+            torch.cuda.synchronize()
+            mod.launches.append(read_launches())
+
+    mod.init, mod.agent = init, agent
+    return mod
+
+
+@contextlib.contextmanager
+def module_in_place(name, module):
+    """``sys.modules[name]`` is ``module`` while the block runs."""
+    missing = object()
+    saved = sys.modules.get(name, missing)
+    sys.modules[name] = module
+    try:
+        yield module
+    finally:
+        if saved is missing:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = saved
+
+
+class Tee(io.TextIOBase):
+    """Writes through to ``stream`` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.seen = stream, io.StringIO()
+
+    def write(self, s):
+        self.seen.write(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def hold_trial(i, run, counts, trial_dir) -> dict:
+    """Sweep trial ``i``: its records, summary and finished run on the
+    stand-in, its files, its ELL launches; trial 0's histograms, one a
+    parameter leaf, finite. -> its config, history, summary and launches."""
+    import numpy as np
+
+    missing = [p for p in ("summary.json", "config.json", "metrics.jsonl", "best/params.npz",
+                           "best/meta.json") if not os.path.exists(os.path.join(trial_dir, p))]
+    if missing:
+        raise AssertionError(f"[reports] trial {i} wrote no {missing}")
+    cfg = read_json(os.path.join(trial_dir, "config.json"))
+    want = SWEEP_TRIALS[i]
+    got = {k: cfg[k.split(".")[0]][k.split(".")[1]] for k in want}
+    if got != want:
+        raise AssertionError(f"[reports] trial {i} trained {got}, its overrides {want}")
+    records = [r for r in run.logged if "train_loss" in r]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r[k]) for r in records
+            for k in ("train_loss", "val_loss", "val_CSI_005")):
+        raise AssertionError(f"[reports] trial {i}'s records on its run: {records}")
+    summary = read_json(os.path.join(trial_dir, "summary.json"))
+    same = set(run.summary) == set(summary) and all(
+        run.summary[k] == v or (math.isnan(run.summary[k]) and math.isnan(v))
+        for k, v in summary.items())
+    if not (run.finished and same):
+        raise AssertionError(f"[reports] trial {i}: run finished {run.finished}, summary "
+                             f"{run.summary} against {summary}")
+    with np.load(os.path.join(trial_dir, "best", "params.npz")) as saved:
+        n_leaves = len(saved.files)
+    hists = [r for r in run.logged if any(isinstance(v, StandInHistogram) for v in r.values())]
+    if i == 0:
+        sizes = [sum(k.startswith("watch/") for k in h) for h in hists]
+        if [h["epoch"] for h in hists] != [0, 1] or sizes != [n_leaves] * 2 or not all(
+                np.isfinite(v.values).all() for h in hists for v in h.values()
+                if isinstance(v, StandInHistogram)):
+            raise AssertionError(f"[reports] trial 0's histograms: epochs "
+                                 f"{[h.get('epoch') for h in hists]}, {sizes} leaves of "
+                                 f"{n_leaves}")
+    elif hists:
+        raise AssertionError(f"[reports] trial {i} watched no epoch, yet logged histograms")
+    launched = by_kernel(counts)
+    if not (launched["hop"] and launched["hop_bwd"]):
+        raise AssertionError(f"[reports] trial {i} launched {launched}")
+    log(f"[reports] (a) trial {i} ({run.id}: " + ", ".join(f"{k} {v}" for k, v in got.items())
+        + "): epochs " + ", ".join(f"{r['epoch']} (train_loss {r['train_loss']:.6f}, val_CSI_005 "
+                                   f"{r['val_CSI_005']:.4f}, epoch_time {r['epoch_time']:.2f} s)"
+                                   for r in records)
+        + f"; {len(run.logged)} records and {len(run.summary)} summary keys on its run, "
+        f"finished; {len(hists)} histogram records of {n_leaves} leaves; launched {launched}")
+    return {"cfg": cfg, "history": records, "summary": summary, "launches": counts}
+
+
+def phase_reports(smi, checks) -> dict:
+    """(a) ``main sweep`` of the pareto.yaml model at full width under a
+    stand-in wandb agent, two trials; (b) ``main eval`` of trial 0's
+    ``best`` with ``--out``: the report figures, or the skip line where
+    matplotlib is missing. Every launched shape held (into ``checks``)."""
+    import importlib.util
+
+    import yaml
+
+    from mswe_gnn_tpu_torch import main as cli
+
+    t_phase = time.perf_counter()
+    cut = cut_config("reports", SWEEP_CONFIG, SWEEP_CUTS)
+    with cli_workdir("smoke_reports_") as tmp:
+        cfg_path = os.path.join(tmp, "pareto_cut.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cut, f)
+        out = os.path.join(tmp, "sweep")
+        with module_in_place("wandb", stand_in_wandb(SWEEP_TRIALS)) as wandb:
+            t0 = time.perf_counter()
+            rc = cli.main(["sweep", "--config", cfg_path, "--sweep-id", SWEEP_ID, "--count",
+                           str(len(SWEEP_TRIALS)), "--out", out])
+            sweep_s = time.perf_counter() - t0
+        if rc != 0 or len(wandb.runs) != len(SWEEP_TRIALS):
+            raise AssertionError(f"[reports] sweep returned {rc} after {len(wandb.runs)} trials")
+        trials, dirs = [], []
+        for i, (run, counts) in enumerate(zip(wandb.runs, wandb.launches)):
+            dirs.append(os.path.join(out, f"trial_{run.id}"))
+            trials.append(hold_trial(i, run, counts, dirs[-1]))
+        sweep_counts = sum((t["launches"] for t in trials), collections.Counter())
+        log(f"[reports] (a) {len(trials)} trials at full width in {sweep_s:.1f} s; launched "
+            f"{by_kernel(sweep_counts)}")
+
+        # (b) the reporting eval of trial 0's best
+        eval_dir = os.path.join(tmp, "eval")
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            eval_counts = cli_run(["eval", "--config", os.path.join(dirs[0], "config.json"),
+                                   "--ckpt", os.path.join(dirs[0], "best"), "--out", eval_dir])
+        eval_s = time.perf_counter() - t0
+        skipped = tee.seen.getvalue().count(cli.FIGURES_SKIPPED)
+        written = sorted(os.listdir(eval_dir))
+        has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+        if has_matplotlib:
+            empty = [f for f in REPORT_FILES if not os.path.exists(os.path.join(eval_dir, f))
+                     or os.path.getsize(os.path.join(eval_dir, f)) == 0]
+            if skipped or empty:
+                raise AssertionError(f"[reports] (b) with matplotlib: skip line {skipped}x, "
+                                     f"missing or empty {empty}")
+        elif skipped != 1 or written != ["summary.json"]:
+            raise AssertionError(f"[reports] (b) without matplotlib: the skip line printed "
+                                 f"{skipped} times, files {written}")
+        summary = read_json(os.path.join(eval_dir, "summary.json"))
+        worst = max(abs(summary[k] - v) for k, v in summary.items() if not is_timing_key(k))
+        if worst >= 1e-5 or set(summary) != set(trials[0]["summary"]) - {"n_params"}:
+            raise AssertionError(f"[reports] (b) eval {summary} != trial 0's training summary "
+                                 f"{trials[0]['summary']}")
+        log(f"[reports] (b) eval of trial 0's best in {eval_s:.1f} s: matplotlib "
+            f"{'present' if has_matplotlib else 'absent'}, the skip line printed {skipped} "
+            f"time(s), files {written}; the training summary within {worst:.2e}; "
+            f"mean_prediction_time_s {summary['mean_prediction_time_s']:.4f}; launched "
+            f"{by_kernel(eval_counts)}")
+
+        # the kernels at every shape the sweep and the eval launched, with
+        # each trial's model and weights
+        for i, trial in enumerate(trials):
+            paths = [(f"reports_sweep trial {i}", 0, trial["launches"])]
+            if i == 0:
+                paths.append(("reports_eval", 2, eval_counts))
+            hold_cli_shapes(checks, trial["cfg"], {"train_dir": dirs[i]}, paths)
+    log(f"[reports] summary: epoch times " + "; ".join(
+        f"trial {i} " + ", ".join(f"{r['epoch_time']:.2f}" for r in t["history"]) + " s"
+        for i, t in enumerate(trials))
+        + f"; eval mean_prediction_time_s {summary['mean_prediction_time_s']:.4f}; {smi}; "
+        f"(a) and (b) took {sweep_s + eval_s:.1f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"reports_sweep": sweep_counts, "reports_eval": eval_counts},
+            "epoch_s": [[r["epoch_time"] for r in t["history"]] for t in trials],
+            "eval_s_per_sim": summary["mean_prediction_time_s"], "sweep_s": sweep_s,
+            "eval_s": eval_s}
+
+
 # ---------------------------------------------------------------- phase 6
 def phase_timing(cases, flush, paths, checks, path_dtypes=None) -> dict:
     """Holds every case of ``timing_cases`` bit-equal to its plain version on
@@ -3254,6 +3501,7 @@ def main() -> None:
     mesh_ = phase_mesh(smi, checks, sample, cfg, params, apply_fn, ring["graph"])
     models = phase_mesh_models(smi, checks, sample, gnn["sample"], serving, mesh_,
                                (cfg, params, apply_fn))
+    reports = phase_reports(smi, checks)
     # phase 6 runs last: it also times the union shapes of phases 7 and 8
     cases = timing_cases(banded, serving["cache"], cfg)
     cache4, spec4 = batched_train["cache"]
@@ -3280,6 +3528,7 @@ def main() -> None:
                                     "row table", 7000)
     paths.update(mesh_["launches"])
     paths.update(models["launches"])
+    paths.update(reports["launches"])
     path_dtypes = dict.fromkeys(("cli_train", "cli_eval", "cli_eval_trained", "gnn_serving",
                                  "gnn_train_step", "gnn_cli_train", "gnn_cli_eval",
                                  "data_cli_train", "data_cli_eval", "data_map_train",
@@ -3287,7 +3536,7 @@ def main() -> None:
                                  "ring_overlap_step", "ring_wide_step", "ring_cli_train",
                                  "mesh_cli_train", "mesh_cli_eval", "mesh_ring_fallback",
                                  "mesh_baselines", "mesh_lp_cli_train", "mesh_lp_cli_eval",
-                                 "mesh_lp_serving_f32"),
+                                 "mesh_lp_serving_f32", "reports_sweep", "reports_eval"),
                                 "float32")
     timing = phase_timing(cases, flush, paths, checks, path_dtypes)
     by_path = {path: by_kernel(counts) for path, counts in paths.items()}
@@ -3341,6 +3590,9 @@ def main() -> None:
     kernels[0]["mesh_baseline_rollout_batch_ms"] = {
         k: v["rollout_ms"] for k, v in models["baselines"].items()}
     kernels[0]["rollout_timed_s"] = models["profiling"]["timed"]
+    for k in kernels[:2]:
+        k["reports_sweep_epoch_s"] = reports["epoch_s"]
+    kernels[0]["reports_eval_s_per_sim"] = reports["eval_s_per_sim"]
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

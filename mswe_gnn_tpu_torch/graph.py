@@ -387,6 +387,12 @@ def edge_slot_table_reference(edge_index: np.ndarray, edge_mask: np.ndarray,
     return table, mask
 
 
+def ell_aggregate(msgs: torch.Tensor, table: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-edge messages ``[E, F]`` summed into nodes through the ELL table
+    ``[N, D]`` and its mask: a gather and a sum (JAX graph.py:424-427)."""
+    return (msgs[table.long()] * mask[..., None]).sum(dim=1)
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 

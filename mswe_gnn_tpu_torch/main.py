@@ -1,8 +1,10 @@
 """Experiment CLI: config -> data -> train -> evaluate -> report (port of
-mswe_gnn_tpu/main.py, modes ``train`` and ``eval``):
+mswe_gnn_tpu/main.py, modes ``train``, ``eval`` and ``sweep``):
 
   python3 -m mswe_gnn_tpu_torch.main train --config configs/synthetic.yaml --out runs/x
   python3 -m mswe_gnn_tpu_torch.main eval  --config ... --ckpt runs/x/best --out runs/x_eval
+  python3 -m mswe_gnn_tpu_torch.main sweep --config configs/pareto.yaml \
+      --sweep-id ENTITY/PROJECT/ID --count 4 --out runs/sweep
 
 Runs on the GPU; ``--device cpu`` runs on the CPU, and without a GPU and
 without ``--device`` it raises. Data comes from one of three sources, as the
@@ -53,7 +55,14 @@ rank, else gloo: the CPU, or more ranks than cards, since NCCL refuses two
 ranks on one card. A failed ``init_process_group`` or collective ends the
 run with an error; nothing switches backend.
 
-Not ported, and raising: ``sweep`` (wandb) and the report figures.
+``train`` and ``eval`` write the report figures into ``--out`` (JAX
+main.py:295-330): the summary figures of ``SpatialAnalysis.save_reports``
+and the best / worst simulations' panels and videos. They need matplotlib;
+where it is missing the CLI prints ``report figures skipped: matplotlib is
+not installed`` and finishes. ``sweep`` runs ``--count`` trials under a
+wandb sweep agent (``run_sweep``; needs wandb, one process only), each a
+``train`` of the agent's overrides merged over the config into
+``<out>/trial_<run id>``.
 Checkpoints are the port's npz format (training/checkpoint.py); an orbax
 checkpoint of the JAX package is converted first (tests/torch_port_convert.py).
 """
@@ -92,6 +101,7 @@ from mswe_gnn_tpu_torch.training.rollout import rollout
 from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
 from mswe_gnn_tpu_torch.utils.analysis import SpatialAnalysis
 from mswe_gnn_tpu_torch.utils.logging import MetricLogger
+from mswe_gnn_tpu_torch.utils.visualization import PlotRollout, require_matplotlib
 
 EXIT_RELAUNCH = 75      # --epoch-budget spent: relaunch to resume from the autosave
 
@@ -308,12 +318,23 @@ def split_union(pred: np.ndarray, spec, b: int) -> List[np.ndarray]:
     return outs
 
 
+FIGURES_SKIPPED = "report figures skipped: matplotlib is not installed"
+
+
 def evaluate(apply_fn, model_cfg, params, test: List[FloodGraph],
+             out_dir: Optional[str] = None,
              numerical_times: Optional[List[float]] = None,
+             test_records=None, render: bool = True,
              solver_label: str = "solver", eval_batch_size: int = 1,
-             device=None) -> Dict:
+             device=None, ring_perm: Optional[np.ndarray] = None) -> Dict:
     """Timed full-rollout test evaluation + spatial analysis
-    (reference main.py:138-166); draws no figures.
+    (reference main.py:138-166). With ``out_dir`` it also writes the
+    summary figures there (``SpatialAnalysis.save_reports``), and with
+    ``test_records`` (the records carrying the meshes) and ``render`` the
+    reference's figure set of the best and worst simulations (reference
+    main.py:171-181), after the timed rollouts. Where matplotlib is missing
+    it prints ``FIGURES_SKIPPED`` instead. ``ring_perm`` is the ring order
+    of ``test`` (``prepare_ring_graphs``), undone before drawing.
 
     ``eval_batch_size`` > 1 rolls out ``concat_graphs`` unions of that many
     test graphs and attributes elapsed/b to each simulation; per-graph
@@ -352,7 +373,57 @@ def evaluate(apply_fn, model_cfg, params, test: List[FloodGraph],
     analysis = SpatialAnalysis(rollouts, test, prediction_times=times,
                                numerical_times=numerical_times,
                                solver_label=solver_label)
-    return analysis.summary()
+    summary = analysis.summary()
+    if out_dir:
+        try:
+            require_matplotlib()
+        except ImportError:
+            print(FIGURES_SKIPPED, flush=True)
+            return summary
+        analysis.save_reports(out_dir)
+        if render and test_records is not None:
+            _render_rollout_reports(analysis, rollouts, test, test_records, out_dir,
+                                    ring_perm)
+    return summary
+
+
+def mesh_order(arr: np.ndarray, perm: Optional[np.ndarray]) -> np.ndarray:
+    """Rows of ``arr`` in ring order (``perm[new] = old``) back in the
+    mesh's own order; ``arr`` itself without a permutation."""
+    if perm is None:
+        return arr
+    out = np.empty_like(arr)
+    out[perm] = arr
+    return out
+
+
+def _render_rollout_reports(analysis, rollouts, test, test_records, out_dir: str,
+                            ring_perm: Optional[np.ndarray] = None) -> None:
+    """The best and worst simulations' figures (reference main.py:171-181,
+    PlotRollout panels, utils/visualization.py:515-1156): rollout frame,
+    FAT, CSI/F1, Froude and mass-conservation panels; the videos of the best
+    one. Each graph is drawn in its mesh's own order."""
+    rank = analysis.ranking()
+    cons = analysis.mass_conservation_series()
+    for label in ("best", "worst"):
+        i = rank[label]
+        rec = test_records[i]
+        g = test[i]
+        real = mesh_order(g.y.cpu().numpy(), ring_perm)
+        pr = PlotRollout(rec.mesh, mesh_order(rollouts[i], ring_perm), real,
+                         temporal_res=float(rec.temporal_res),
+                         node_ptr=np.asarray(g.spec.node_ptr))
+        t_wet = int(np.argmax(real[:rec.mesh.meshes[0].num_faces, 0].sum(0)))
+        pr.frame(t_wet, out_path=os.path.join(out_dir, f"rollout_{label}.png"))
+        pr.fat_comparison(out_path=os.path.join(out_dir, f"fat_{label}.png"))
+        pr.csi_f1_panel(out_path=os.path.join(out_dir, f"csi_f1_{label}.png"))
+        pr.froude_map(out_path=os.path.join(out_dir, f"froude_{label}.png"))
+        pr.conservation_panel(
+            cons[i], inflow_series=analysis.inflow_volume_series(i),
+            out_path=os.path.join(out_dir, f"conservation_{label}.png"))
+        if label == "best":
+            pr.create_video(os.path.join(out_dir, "rollout_best.gif"))
+            pr.create_multiscale_video(os.path.join(out_dir, "rollout_best_multiscale.gif"))
 
 
 FALLBACK = "ring_halo unavailable (non-MSGNN model or ring plan failure); falling back to GSPMD"
@@ -421,9 +492,10 @@ def parallel_layout(cfg: Dict, devices: Optional[List[torch.device]] = None) -> 
     return Layout(home=resolve_device(devices and devices[0]))
 
 
-def _ring_data(n_parts: int, *splits) -> List[List[FloodGraph]]:
-    """Each split ring-reordered with one permutation (``prepare_ring_graphs``)."""
-    return [prepare_ring_graphs(split, n_parts)[0] for split in splits]
+def _ring_data(n_parts: int, *splits) -> List[Tuple[List[FloodGraph], np.ndarray]]:
+    """Each split ring-reordered with one permutation (``prepare_ring_graphs``)
+    -> (graphs, permutation) a split."""
+    return [prepare_ring_graphs(split, n_parts) for split in splits]
 
 
 def _ring_apply(cfg: Dict, model_cfg, template: FloodGraph, devices):
@@ -502,10 +574,12 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
               f"{corpus_digest(test_records)}")
         opts = trainer_options(cfg)
         model_cfg, params, apply_fn = build_experiment_model(cfg, train[0], device=layout.home)
+        ring_perm = None
         if layout.ring:
             ring_apply = _ring_or_mesh(cfg, layout, model_cfg, train[0], devices)
             if ring_apply is not None:
-                train, val, test = _ring_data(len(layout.ring), train, val, test)
+                (train, _), (val, _), (test, ring_perm) = _ring_data(
+                    len(layout.ring), train, val, test)
                 apply_fn = ring_apply
                 if opts.batch_size != 1:
                     # one partitioned graph a step: the plans are the template's
@@ -524,6 +598,8 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
                      checkpoint_dir=autosave_dir if is_main else None,
                      batch_layout=cfg["trainer_options"].get("batch_layout", "concat"),
                      mesh=layout.mesh, device=layout.home)
+        if logger is not None and opts.watch_every > 0:
+            tr.watch_fn = logger.watch       # wandb histograms; nothing local-first
         # process 0 resumes from its autosave, and hands its state to the others
         if is_main and os.path.exists(os.path.join(autosave_dir, "meta.json")):
             print(f"resumed from epoch {tr.resume(autosave_dir)}")
@@ -549,11 +625,11 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
                             epoch=len(tr.history), history=tr.history)
             save_checkpoint(os.path.join(out_dir, "last"), tr.params,
                             epoch=len(tr.history), history=tr.history)
-            summary = evaluate(apply_fn, model_cfg, tr.best_params, test,
+            summary = evaluate(apply_fn, model_cfg, tr.best_params, test, out_dir=out_dir,
                                numerical_times=[r.solver_seconds for r in test_records],
-                               solver_label=_solver_label(cfg),
+                               test_records=test_records, solver_label=_solver_label(cfg),
                                eval_batch_size=_eval_batch_size(cfg, layout.ring),
-                               device=layout.home)
+                               device=layout.home, ring_perm=ring_perm)
             summary["n_params"] = count_params(tr.best_params)
             logger.summary(summary)
         finally:
@@ -565,9 +641,42 @@ def run_training(cfg: Dict, out_dir: str, epoch_budget: Optional[int] = None,
     return summary
 
 
+def deep_merge(dst: Dict, src: Dict) -> Dict:
+    """``dst`` with ``src`` merged in, dict into dict, key by key; ``src``
+    wins elsewhere."""
+    out = dict(dst)
+    for k, v in src.items():
+        out[k] = (deep_merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict)
+                  else v)
+    return out
+
+
+def run_sweep(base_cfg: Dict, sweep_id: str, out_dir: str, count: int = 1,
+              device=None) -> None:
+    """A wandb sweep agent's trials (JAX main.py:509-538; reference
+    main.py:189-196): ``count`` trials of ``wandb.agent(sweep_id)``, each
+    ``run_training`` of the agent's dotted-key overrides deep-merged over
+    ``base_cfg``, into ``<out_dir>/trial_<run id>`` on ``device``. The
+    trial's ``MetricLogger`` attaches to the agent's run, so every epoch's
+    metrics reach the sweep controller; the run is finished here."""
+    import wandb
+
+    def _one():
+        run = wandb.init()
+        overrides = config_lib.fix_dotted_keys(dict(run.config))
+        try:
+            run_training(deep_merge(base_cfg, overrides),
+                         os.path.join(out_dir, f"trial_{run.id}"), device=device)
+        finally:
+            run.finish()
+
+    wandb.agent(sweep_id, function=_one, count=count)
+
+
 def run_eval(cfg: Dict, ckpt: str, out_dir: str, device=None) -> Dict:
     """Evaluate the checkpoint ``ckpt`` on the test split; writes
-    ``<out_dir>/summary.json`` -> the summary. ``device`` as in
+    ``<out_dir>/summary.json`` and the report figures -> the summary.
+    ``device`` as in
     ``run_training``: under a ring_halo block the test graphs run through
     the ring; under a GSPMD mesh the evaluation runs on its first device."""
     cfg = config_lib.with_defaults(cfg)
@@ -577,15 +686,17 @@ def run_eval(cfg: Dict, ckpt: str, out_dir: str, device=None) -> Dict:
     print(f"corpus: {len(test_records)} test records, sha256 {corpus_digest(test_records)}")
     model_cfg, params, apply_fn = build_experiment_model(cfg, test[0], device=layout.home)
     params = restore_weights(ckpt, params)
+    ring_perm = None
     if layout.ring:
         ring_apply = _ring_or_mesh(cfg, layout, model_cfg, test[0], devices)
         if ring_apply is not None:
-            test, = _ring_data(len(layout.ring), test)
+            (test, ring_perm), = _ring_data(len(layout.ring), test)
             apply_fn = ring_apply
-    summary = evaluate(apply_fn, model_cfg, params, test,
+    summary = evaluate(apply_fn, model_cfg, params, test, out_dir=out_dir,
                        numerical_times=[r.solver_seconds for r in test_records],
-                       solver_label=_solver_label(cfg),
-                       eval_batch_size=_eval_batch_size(cfg, layout.ring), device=layout.home)
+                       test_records=test_records, solver_label=_solver_label(cfg),
+                       eval_batch_size=_eval_batch_size(cfg, layout.ring), device=layout.home,
+                       ring_perm=ring_perm)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=float)
@@ -648,6 +759,10 @@ def main(argv=None) -> int:
     ap.add_argument("mode", choices=["train", "eval", "sweep"])
     ap.add_argument("--config", default=None, help="YAML config path")
     ap.add_argument("--ckpt", default=None, help="checkpoint dir (eval mode)")
+    ap.add_argument("--sweep-id", default=None,
+                    help="wandb sweep id (sweep mode): entity/project/id")
+    ap.add_argument("--count", type=int, default=1,
+                    help="trials to run under the sweep agent (sweep mode)")
     ap.add_argument("--out", default="runs/latest")
     ap.add_argument("--epoch-budget", type=int, default=None,
                     help=f"max epochs in this process; exits {EXIT_RELAUNCH} when hit "
@@ -669,13 +784,20 @@ def main(argv=None) -> int:
                     help="the processes on this host (default LOCAL_WORLD_SIZE, else "
                          "--dist-num-processes: one host)")
     args = ap.parse_args(argv)
+    if args.mode == "sweep":
+        if not args.sweep_id:
+            ap.error("--sweep-id is required for sweep")
+        if args.dist_num_processes or os.environ.get("MSWE_MULTIHOST") == "1":
+            raise ValueError("sweep runs its trials in one process: drop "
+                             "--dist-num-processes (and MSWE_MULTIHOST)")
     distributed = init_distributed(args)
     enable_compilation_cache()
     try:
         cfg = config_lib.read_config(args.config) if args.config else {}
         cfg = config_lib.fix_dotted_keys(cfg)
         if args.mode == "sweep":
-            raise NotImplementedError("sweep mode (a wandb sweep agent) is not ported")
+            run_sweep(cfg, args.sweep_id, args.out, count=args.count, device=args.device)
+            return 0
         if args.mode == "train":
             result = run_training(cfg, args.out, epoch_budget=args.epoch_budget,
                                   device=args.device)

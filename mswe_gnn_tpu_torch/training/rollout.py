@@ -34,6 +34,14 @@ def bc_window(graph: FloodGraph, step: int) -> torch.Tensor:
     return graph.bc_values[:, step: step + graph.previous_t]
 
 
+def bc_midpoint(graph: FloodGraph, step: int) -> torch.Tensor:
+    """Mean of the last two BC entries of window ``step + 1``: the value of
+    the reference's conservation loss (reference training/train.py:138,
+    ``BC[:,-2:,i+1].mean(1)``), a midpoint rule for instantaneous-sample BC
+    series (JAX rollout.py:31-38)."""
+    return bc_window(graph, step + 1)[:, -2:].mean(dim=1)
+
+
 def bc_step_inflow(graph: FloodGraph, step: int) -> torch.Tensor:
     """Inflow driving rollout step ``step``'s transition: the BC value at the
     last input frame's timestamp (rollout.py:40-47), which the

@@ -728,6 +728,9 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         self.rng = np.random.default_rng(opts.seed)
         self.log_fn = log_fn or (lambda m: None)
+        # called as watch_fn(params, epoch) on watched epochs, after the norms
+        # (the CLI sets MetricLogger.watch: wandb histograms)
+        self.watch_fn: Optional[Callable] = None
         self.history: List[Dict] = []
         self.best_params = clone_tree(self.params)
         self.best_val_loss = float("inf")
@@ -945,6 +948,8 @@ class Trainer:
                       "train_loss": train_loss, "epoch_time": time.time() - t0}
             if watching:
                 record.update(watch_norms(self.params, prev_params))
+                if self.watch_fn is not None:
+                    self.watch_fn(self.params, epoch)
             if self._maybe_rollback(train_loss):
                 record["spike_rollback"] = 1
             if self.val_graphs and (epoch % val_every == 0 or epoch == max_epochs - 1):

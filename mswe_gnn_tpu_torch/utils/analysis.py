@@ -4,14 +4,16 @@ numeric part of mswe_gnn_tpu/utils/analysis.py).
 Equivalent of the reference ``SpatialAnalysis``
 (reference utils/miscellaneous.py:311-562): aggregates per-simulation rollout
 errors, CSI/F1 curves in time, mass-conservation residuals, best/worst
-ranking, prediction-time statistics and speed-up vs a numerical solver.
-Multiscale rollouts are restricted to the finest scale (reference
+ranking, prediction-time statistics and speed-up vs a numerical solver,
+plus matplotlib report figures (``save_reports``; matplotlib is imported
+there, and its absence raises an ImportError that names it). Multiscale
+rollouts are restricted to the finest scale (reference
 utils/miscellaneous.py:322-327). The metrics run in float32 on the CPU, as
-the JAX package's do. The report figures (``save_reports``) need matplotlib
-and are not ported yet.
+the JAX package's do.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -149,3 +151,66 @@ class SpatialAnalysis:
                     out["speed_up_mean"] = mu
                     out["speed_up_std"] = sd
         return out
+
+    # --- figures --------------------------------------------------------
+    def _curve_figure(self, plt, curves_of, name: str, color=None):
+        style = {} if color is None else {"color": color}
+        fig, axes = plt.subplots(1, len(self.thresholds), figsize=(11, 4))
+        for ax, tau in zip(np.atleast_1d(axes), self.thresholds):
+            curves = curves_of(tau)
+            t = np.arange(curves.shape[1])
+            mean, std = np.nanmean(curves, 0), np.nanstd(curves, 0)
+            ax.plot(t, mean, marker="o", lw=2, **style)
+            ax.fill_between(t, mean - std, mean + std, alpha=0.3, **style)
+            ax.set_title(f"{name} @ {tau} m")
+            ax.set_xlabel("rollout step")
+            ax.set_ylim(0, 1)
+        return fig
+
+    def save_reports(self, out_dir: str) -> None:
+        """The summary figures (JAX analysis.py:158-231): ``csi_curves.png``,
+        ``rollout_loss_box.png``, ``f1_curves.png``,
+        ``execution_times_box.png`` (where prediction times exist) and
+        ``mass_conservation.png`` in ``out_dir``."""
+        from mswe_gnn_tpu_torch.utils.visualization import require_matplotlib
+
+        plt = require_matplotlib()
+        os.makedirs(out_dir, exist_ok=True)
+
+        def save(fig, name):
+            fig.tight_layout()
+            fig.savefig(os.path.join(out_dir, name), dpi=120)
+            plt.close(fig)
+
+        save(self._curve_figure(plt, self.csi_curves, "CSI"), "csi_curves.png")
+
+        losses = self.rollout_losses()
+        fig, ax = plt.subplots(figsize=(5, 4))
+        ax.boxplot([losses[:, 0], losses[:, 1]], tick_labels=["h [m]", "|q| [m2/s]"])
+        ax.set_title("rollout MAE per simulation")
+        save(fig, "rollout_loss_box.png")
+
+        # F1 curves, the companion of the CSI ones
+        save(self._curve_figure(plt, self.f1_curves, "F1", color="tab:green"),
+             "f1_curves.png")
+
+        # surrogate against numerical execution times (reference
+        # SpatialAnalysis :311-562: the speed-up at a glance)
+        if self.prediction_times:
+            cols, labels = [np.asarray(self.prediction_times)], ["surrogate"]
+            if self.numerical_times and np.asarray(self.numerical_times).max() > 0:
+                cols.append(np.asarray(self.numerical_times))
+                labels.append("numerical solver")
+            fig, ax = plt.subplots(figsize=(5, 4))
+            ax.boxplot(cols, tick_labels=labels)
+            ax.set_yscale("log")
+            ax.set_ylabel("seconds per simulation")
+            ax.set_title("execution time: surrogate vs numerical")
+            save(fig, "execution_times_box.png")
+
+        fig, ax = plt.subplots(figsize=(6, 4))
+        for c in self.mass_conservation_series():
+            ax.plot(np.arange(1, len(c) + 1), c, alpha=0.6)
+        ax.set_title("mass conservation residual [1e6 m$^3$]")
+        ax.set_xlabel("rollout step")
+        save(fig, "mass_conservation.png")

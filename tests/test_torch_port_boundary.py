@@ -7,7 +7,9 @@
   fallback;
 - the package, its data layer and its CLI import where h5py and sklearn are
   missing (as on the GPU machine): an HDF5 file then raises an error that
-  names h5py, and a classic NetCDF-3 map file still reads.
+  names h5py, and a classic NetCDF-3 map file still reads;
+- the package, its CLI and its figures module import where matplotlib and
+  wandb are missing (as on the GPU machine), and import neither on the way.
 """
 import ast
 import subprocess
@@ -48,7 +50,7 @@ def test_port_imports_nothing_of_jax():
         "data/meshing", "utils/metrics", "utils/analysis", "utils/logging", "ops/segment",
         "models/convs", "models/gnn", "data/interp", "data/augment", "data/io",
         "data/netcdf", "data/torch_compat", "compat/torch_import", "parallel/sharding",
-        "parallel/gspmd", "dryrun")} <= scanned
+        "parallel/gspmd", "dryrun", "utils/visualization")} <= scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
            for m in imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -178,6 +180,27 @@ def test_port_imports_without_h5py_and_sklearn():
         "import mswe_gnn_tpu_torch.data.torch_compat, mswe_gnn_tpu_torch.compat.torch_import\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         "('scipy', 'h5py', 'sklearn', 'jax', 'mswe_gnn_tpu') and sys.modules[m] is not None]\n"
+        "assert loaded == [], loaded\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("hidden", [True, False])
+def test_port_imports_without_matplotlib_and_wandb(hidden):
+    """A fresh interpreter imports the package, the CLI, the figures module
+    and the logger with matplotlib and wandb hidden (as on the GPU machine),
+    or present where they are installed; neither is imported on the way
+    (the figures and the wandb wiring import them inside their functions)."""
+    code = (
+        "import sys\n"
+        + ("sys.modules['matplotlib'] = None\nsys.modules['wandb'] = None\n" if hidden else "")
+        + "import mswe_gnn_tpu_torch, mswe_gnn_tpu_torch.main\n"
+        "import mswe_gnn_tpu_torch.utils.visualization, mswe_gnn_tpu_torch.utils.logging\n"
+        "import mswe_gnn_tpu_torch.utils.analysis, mswe_gnn_tpu_torch.training.train\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('matplotlib', 'wandb', 'jax', 'mswe_gnn_tpu') and sys.modules[m] is not None]\n"
         "assert loaded == [], loaded\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -16,6 +16,7 @@ tests/test_experiment.py holds JAX's eval against its training summary.
 import copy
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -173,13 +174,15 @@ def micro_runs(tmp_path_factory):
     """MICRO through both packages' run_training from the same weights (JAX's
     initialisation, kept as JAX's run builds its model and handed to the
     port as ``saved_model``), and the port's run_eval of JAX's best weights,
-    converted. JAX's report figures are not drawn: the port has none, and
-    they change no number."""
+    converted. Neither package's report figures are drawn: they change no
+    number, and tests/test_torch_port_reports.py holds them."""
     base = tmp_path_factory.mktemp("micro")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MSWE_DATA_CACHE", str(base / "cache"))
         mp.setattr(jax_main, "_render_rollout_reports", lambda *a, **k: None)
         mp.setattr(jax_analysis.SpatialAnalysis, "save_reports", lambda self, out: None)
+        mp.setattr(port_main, "_render_rollout_reports", lambda *a, **k: None)
+        mp.setattr(port_analysis.SpatialAnalysis, "save_reports", lambda self, out: None)
         init = {}
         build = jax_main.build_experiment_model
 
@@ -287,7 +290,9 @@ def test_triangulated_micro_through_the_cli(tmp_path, monkeypatch):
                                   "orbax", "wandb"])
 def test_unported_cli_options_raise(tmp_path, monkeypatch, what):
     if what == "sweep":
-        with pytest.raises(NotImplementedError, match="sweep"):
+        # sweep mode is ported (tests/test_torch_port_wandb.py): without a
+        # --sweep-id it is a usage error
+        with pytest.raises(SystemExit):
             port_main.main(["sweep", "--device", "cpu"])
     elif what in ("dataset_folder", "map_folder"):
         # both data paths are ported now (tests/test_torch_port_data.py): the
@@ -312,5 +317,8 @@ def test_unported_cli_options_raise(tmp_path, monkeypatch, what):
         with pytest.raises(NotImplementedError, match="torch_port_convert"):
             port_main.restore_weights(os.path.join(ROOT, JAX_BEST), {})
     else:
-        with pytest.raises(NotImplementedError, match="wandb"):
+        # wandb logging is ported (tests/test_torch_port_wandb.py): asking for
+        # it where wandb cannot be imported raises an error that names it
+        monkeypatch.setitem(sys.modules, "wandb", None)
+        with pytest.raises(ImportError, match="wandb"):
             MetricLogger(str(tmp_path), use_wandb=True)

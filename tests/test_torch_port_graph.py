@@ -133,3 +133,45 @@ def test_bench_problem_graph_matches_bench_py():
         if isinstance(got, torch.Tensor):
             np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jg, f.name)),
                                           err_msg=f.name)
+
+
+def test_ell_aggregate_matches_jax(records, rng):
+    """``graph.ell_aggregate`` against JAX's (graph.py:424-427) on the
+    sample's own in-edge table: random messages [E, 5], float32, summed in
+    the same slot order, within 1e-6."""
+    import jax.numpy as jnp
+
+    from mswe_gnn_tpu.graph import ell_aggregate as jax_ell_aggregate
+    from mswe_gnn_tpu_torch.graph import ell_aggregate
+
+    _, jgraphs = temporal_samples(jax_dataset, records[0], 2, 4)
+    _, pgraphs = temporal_samples(port_dataset, records[1], 2, 4)
+    jg, pg = jgraphs[0], pgraphs[0]
+    msgs = rng.normal(size=(pg.edge_attr.shape[0], 5)).astype(np.float32)
+    want = np.asarray(jax_ell_aggregate(jnp.asarray(msgs), jg.in_edge_table,
+                                        jg.in_edge_mask))
+    got = ell_aggregate(torch.from_numpy(msgs), pg.in_edge_table, pg.in_edge_mask)
+    assert got.shape == want.shape == (pg.num_nodes, 5) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert np.abs(want).sum() > 0
+
+
+@pytest.mark.parametrize("step", [0, 1, 3])
+def test_bc_midpoint_matches_jax(records, step):
+    """``rollout.bc_midpoint`` against JAX's (rollout.py:31-38), as
+    tests/test_rollout.py:55 holds JAX's: the mean of the last two entries
+    of window ``step + 1``; float32, within 1e-7 relative."""
+    import jax.numpy as jnp
+
+    from mswe_gnn_tpu.training.rollout import bc_midpoint as jax_bc_midpoint
+    from mswe_gnn_tpu_torch.training.rollout import bc_midpoint
+
+    _, jgraphs = temporal_samples(jax_dataset, records[0], 3, 4)
+    _, pgraphs = temporal_samples(port_dataset, records[1], 3, 4)
+    jg, pg = jgraphs[0], pgraphs[0]
+    want = np.asarray(jax_bc_midpoint(jg, jnp.asarray(step)))
+    got = bc_midpoint(pg, step).numpy()
+    bcv = pg.bc_values.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-7)
+    np.testing.assert_allclose(got, bcv[:, step + 2: step + 4].mean(1), rtol=1e-6)
+    assert np.abs(want).sum() > 0
