@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mswe_gnn_tpu_torch import native, tree_to
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -320,13 +321,14 @@ def build_flood_graph(
         bcv = np.zeros((nbc, 1), dtype=dtype)
         bel = np.ones(nbc, dtype=dtype)
 
-    in_tab, in_msk = build_edge_slot_table(ei, emask, N, round_to=4,
-                                           d_fixed=spec.in_degree)
-    pool_tab, pool_msk = build_edge_slot_table(
-        np.stack([iei[1], iei[0]]), iemask, N, round_to=4,
-        d_fixed=spec.pool_degree)
-    unpool_tab, unpool_msk = build_edge_slot_table(iei, iemask, N, round_to=4,
-                                                   d_fixed=spec.unpool_degree)
+    with span("mswe.graph.slot_tables"):
+        in_tab, in_msk = build_edge_slot_table(ei, emask, N, round_to=4,
+                                               d_fixed=spec.in_degree)
+        pool_tab, pool_msk = build_edge_slot_table(
+            np.stack([iei[1], iei[0]]), iemask, N, round_to=4,
+            d_fixed=spec.pool_degree)
+        unpool_tab, unpool_msk = build_edge_slot_table(iei, iemask, N, round_to=4,
+                                                       d_fixed=spec.unpool_degree)
 
     t = torch.from_numpy
     return FloodGraph(
@@ -605,7 +607,8 @@ class DeviceConcatPlan:
 
     def __call__(self, stacked: FloodGraph, idx) -> FloodGraph:
         device = stacked.x_static.device
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(device)
+        with span("mswe.sync.concat_index"):      # a blocking copy to the device
+            idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(device)
         if tuple(idx.shape) != (self.b,):
             raise ValueError(f"idx must have shape ({self.b},), got {tuple(idx.shape)}")
         tb = self._tables(device)

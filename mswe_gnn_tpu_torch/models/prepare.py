@@ -26,6 +26,7 @@ import torch
 from mswe_gnn_tpu_torch.graph import FloodGraph
 from mswe_gnn_tpu_torch.models.mlp import apply_mlp
 from mswe_gnn_tpu_torch.ops.hop import out_slot_table
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 
 def _slot_sources(src_local: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
@@ -42,7 +43,8 @@ def _rebase(table: torch.Tensor, ptr: int) -> torch.Tensor:
 
 
 def _check_rows(tab: torch.Tensor, rows: int, what: str) -> None:
-    lo, hi = int(tab.min()), int(tab.max())
+    with span("mswe.sync.check_rows", 2):
+        lo, hi = int(tab.min()), int(tab.max())
     if lo < 0 or hi >= rows:
         raise ValueError(f"{what} refers to rows [{lo}, {hi}] outside [0, {rows})")
 
@@ -124,7 +126,10 @@ def prepare_graph(params: dict, cfg, graph: FloodGraph) -> FloodGraph:
         return graph
     kind = type(cfg).__name__     # by name: the model modules import this one
     if kind == "MSGNNConfig":
-        return graph.replace(ell_cache=_msgnn_cache(params, cfg, graph))
-    if kind == "GNNConfig" and getattr(cfg, "type_gnn", None) == "SWEGNN":
-        return graph.replace(ell_cache=_gnn_cache(params, cfg, graph))
-    return graph
+        build = _msgnn_cache
+    elif kind == "GNNConfig" and getattr(cfg, "type_gnn", None) == "SWEGNN":
+        build = _gnn_cache
+    else:
+        return graph
+    with span("mswe.prepare_graph"):
+        return graph.replace(ell_cache=build(params, cfg, graph))

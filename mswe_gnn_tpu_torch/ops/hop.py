@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from mswe_gnn_tpu_torch.ops import build as kernel_build
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHUNKS = 128       # 32 lanes x 4 chunks a lane (the kernels' CPL <= 4)
@@ -139,10 +140,14 @@ def out_slot_table(src_tab: torch.Tensor, n_src: int,
     counted = (torch.ones_like(key, dtype=torch.bool) if slot_mask is None
                else slot_mask.reshape(-1) > 0)
     key = torch.where(counted, key, torch.full_like(key, n_src))
-    if key.numel() and bool(((key < 0) | (key > n_src) | (counted & (key == n_src))).any()):
-        raise ValueError(f"a slot reads a source row outside [0, {n_src})")
+    if key.numel():
+        with span("mswe.sync.out_slot_check"):
+            bad = bool(((key < 0) | (key > n_src) | (counted & (key == n_src))).any())
+        if bad:
+            raise ValueError(f"a slot reads a source row outside [0, {n_src})")
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=n_src + 1)[:n_src]
+    with span("mswe.sync.out_slot_bincount", 2):    # on CUDA it reads the key's extrema
+        counts = torch.bincount(key, minlength=n_src + 1)[:n_src]
     out_ptr = torch.zeros(n_src + 1, dtype=torch.int64, device=src_tab.device)
     out_ptr[1:] = torch.cumsum(counts, 0)
     return out_ptr.to(torch.int32), order.to(torch.int32)

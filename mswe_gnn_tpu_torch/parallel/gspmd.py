@@ -64,6 +64,7 @@ from mswe_gnn_tpu_torch.parallel.dist_swegnn import (_decode, _encode_ea, _split
                                                      encode_dist_edges, gather_all,
                                                      gnn_parts_forward, make_dist_msgnn_forward,
                                                      replicate)
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 # the fields a RowModel's plans are built from
 TOPOLOGY = ("edge_index", "edge_attr", "edge_mask", "in_edge_table", "in_edge_mask",
@@ -328,8 +329,14 @@ class RowModel:
 
     def fits(self, graph: FloodGraph) -> bool:
         """Whether ``graph`` has the tables this model was placed for."""
-        return graph.spec == self.spec and all(
-            torch.equal(a, getattr(graph, k)) for a, k in zip(self.tables, TOPOLOGY))
+        if graph.spec != self.spec:
+            return False
+        for a, k in zip(self.tables, TOPOLOGY):
+            with span("mswe.sync.row_fits"):
+                same = torch.equal(a, getattr(graph, k))
+            if not same:
+                return False
+        return True
 
     def encode_edges(self, params) -> list:
         """The encoded slot edge features of every part (with gradients, in a

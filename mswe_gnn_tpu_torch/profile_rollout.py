@@ -28,7 +28,11 @@ clock, each epoch ending in a synchronize),
 - ``device_busy_ms``: the union of the GPU kernel and copy intervals, and
   ``idle_share`` = 1 - busy / wall;
 - ``kernels_per_step``: GPU kernels launched per rollout step;
-- ``top``: the kernels with the most device time (name, count, ms).
+- ``top``: the kernels with the most device time (name, count, ms);
+- ``spans``: the port's span table of the traced run
+  (``utils/profiling.span_table``): per span its count, host ms, device ms
+  and self device ms (a ``mswe.sync.*`` span's count is the blocking reads
+  of the device at its site).
 
 ``--trace`` also writes the Chrome trace. Without CUDA it exits non-zero.
 """
@@ -53,7 +57,7 @@ from mswe_gnn_tpu_torch.graph import concat_graphs
 from mswe_gnn_tpu_torch.models import build_model
 from mswe_gnn_tpu_torch.training.rollout import rollout
 from mswe_gnn_tpu_torch.training.train import Trainer, TrainerOptions
-from mswe_gnn_tpu_torch.utils.profiling import timed
+from mswe_gnn_tpu_torch.utils.profiling import reset_spans, span_table, timed
 
 
 def device_intervals(prof):
@@ -156,6 +160,7 @@ def main(argv=None) -> None:
         run()
     torch.cuda.synchronize()
 
+    reset_spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -180,6 +185,10 @@ def main(argv=None) -> None:
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": len(events) / steps,
         "top": [{"name": n[:80], "count": c, "ms": ms} for n, (c, ms) in top],
+        "spans": {name: {"count": row["count"], "host_ms": row["host_s"] * 1e3,
+                         "device_ms": row["device_s"] * 1e3,
+                         "self_device_ms": row["self_device_s"] * 1e3}
+                  for name, row in span_table().items()},
         **extra,
     }
     if args.trace:

@@ -16,6 +16,7 @@ import torch
 
 from mswe_gnn_tpu_torch import NUM_WATER_VARS
 from mswe_gnn_tpu_torch.graph import FloodGraph
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 
 def masked_error_sums(diff: torch.Tensor, valid: torch.Tensor, type_loss: str):
@@ -47,7 +48,8 @@ def water_mask(diff: torch.Tensor) -> torch.Tensor:
 def loss_variable_scaler(velocity_scaler: float, device=None) -> torch.Tensor:
     """[1, velocity_scaler] weighting (reference training/loss.py:37-47)."""
     s = torch.ones(NUM_WATER_VARS, device=device)
-    s[1] = velocity_scaler
+    with span("mswe.sync.loss_scaler"):      # on CUDA a blocking copy of the scalar
+        s[1] = velocity_scaler
     return s
 
 

@@ -55,6 +55,7 @@ from mswe_gnn_tpu_torch.training.rollout import (bc_step_inflow, bc_window, inje
 from mswe_gnn_tpu_torch.utils.metrics import (csi_counts, csi_from_counts, get_csi,
                                              get_rollout_loss, rollout_error,
                                              rollout_error_sums)
+from mswe_gnn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,17 +150,18 @@ class Optimizer:
 
     def update(self, grads, state: dict, params) -> None:
         """One update of ``params`` in place from the gradient tree ``grads``."""
-        leaves = tree_leaves(params)
-        clipped = self.clip(tree_leaves(grads))
-        adamw = state["adamw"]
-        for group in adamw.param_groups:
-            group["lr"] = self.lr(state["count"])
-        for p, g in zip(leaves, clipped):
-            p.grad = g
-        adamw.step()
-        for p in leaves:
-            p.grad = None
-        state["count"] += 1
+        with span("mswe.train.optimizer"):
+            leaves = tree_leaves(params)
+            clipped = self.clip(tree_leaves(grads))
+            adamw = state["adamw"]
+            for group in adamw.param_groups:
+                group["lr"] = self.lr(state["count"])
+            for p, g in zip(leaves, clipped):
+                p.grad = g
+            adamw.step()
+            for p in leaves:
+                p.grad = None
+            state["count"] += 1
 
 
 def make_optimizer(opts: TrainerOptions, steps_per_epoch: int) -> Optimizer:
@@ -326,7 +328,8 @@ def _mesh_loss(pieces: List[tuple], batch: MeshBatch, rollout_steps: int,
     order, the same adds whichever process holds a row."""
     slots = torch.zeros(batch.n_rows, rollout_steps, 4, device=home)
     if pieces:
-        rows = torch.as_tensor([r for r, _ in pieces], device=home)
+        with span("mswe.sync.mesh_rows"):          # a blocking copy to the device
+            rows = torch.as_tensor([r for r, _ in pieces], device=home)
         slots = slots.index_add(0, rows, torch.stack([p for _, p in pieces]))
     if process_index()[1] > 1:
         slots = _SumOverProcesses.apply(slots)
@@ -368,9 +371,11 @@ def loss_and_grads(apply_fn: Callable, params, cfg, batch, rollout_steps: int,
                                            multiscale)
         return loss, _unflatten(params, grads)
     with torch.enable_grad():
-        loss = pushforward_loss(apply_fn, work, cfg, batch, rollout_steps, opts,
-                                multiscale)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("mswe.train.forward"):
+            loss = pushforward_loss(apply_fn, work, cfg, batch, rollout_steps, opts,
+                                    multiscale)
+        with span("mswe.train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(params, grads)
 
@@ -389,14 +394,18 @@ def _mesh_loss_and_grads(apply_fn: Callable, work, cfg, batch: MeshBatch, rollou
     sizes = [p.numel() for p in leaves]
     per_row = torch.zeros(batch.n_rows, sum(sizes), device=home)
     with torch.enable_grad():
-        pieces = _mesh_row_pieces(apply_fn, work, cfg, batch, rollout_steps, opts, multiscale)
-        loss = _mesh_loss(pieces, batch, rollout_steps, opts, home)
-        if pieces:
-            d_pieces = torch.autograd.grad(loss, [p for _, p in pieces], retain_graph=True)
-        for (row, p), d in zip(pieces, d_pieces if pieces else ()):
-            g = torch.autograd.grad(p, leaves, grad_outputs=d, allow_unused=True)
-            per_row[row] = torch.cat([(torch.zeros_like(x) if gx is None else gx).reshape(-1)
-                                      for x, gx in zip(leaves, g)])
+        with span("mswe.train.forward"):
+            pieces = _mesh_row_pieces(apply_fn, work, cfg, batch, rollout_steps, opts,
+                                      multiscale)
+            loss = _mesh_loss(pieces, batch, rollout_steps, opts, home)
+        with span("mswe.train.backward"):
+            if pieces:
+                d_pieces = torch.autograd.grad(loss, [p for _, p in pieces],
+                                               retain_graph=True)
+            for (row, p), d in zip(pieces, d_pieces if pieces else ()):
+                g = torch.autograd.grad(p, leaves, grad_outputs=d, allow_unused=True)
+                per_row[row] = torch.cat([(torch.zeros_like(x) if gx is None else gx)
+                                          .reshape(-1) for x, gx in zip(leaves, g)])
     if process_index()[1] > 1:
         import torch.distributed as dist
 

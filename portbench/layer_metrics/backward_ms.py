@@ -1,0 +1,9 @@
+"""Device ms a train step in the backward (``mswe.train.backward``: the
+``torch.autograd.grad`` call, the remat recompute included), from the
+port's span table over the traced slice. None where the port has no such
+span."""
+from portbench.layer_metrics._spans import device_ms_per_unit
+
+
+def read(ctx):
+    return device_ms_per_unit(ctx, "mswe.train.backward")
