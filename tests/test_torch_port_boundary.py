@@ -9,7 +9,8 @@
   missing (as on the GPU machine): an HDF5 file then raises an error that
   names h5py, and a classic NetCDF-3 map file still reads;
 - the package, its CLI and its figures module import where matplotlib and
-  wandb are missing (as on the GPU machine), and import neither on the way.
+  wandb are missing (as on the GPU machine), and import neither on the way;
+- the suite runs PyTorch on one thread (tests/torch_port_common.py).
 """
 import ast
 import subprocess
@@ -206,3 +207,9 @@ def test_port_imports_without_matplotlib_and_wandb(hidden):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_suite_runs_torch_on_one_thread():
+    """tests/torch_port_common.py pins PyTorch to one thread in every test
+    process that collects a port test."""
+    assert torch.get_num_threads() == 1

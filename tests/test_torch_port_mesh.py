@@ -58,16 +58,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU8 = ["cpu"] * 8
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread, for the reason tests/test_torch_port_parallel.py
-    gives (many small ops a step; the suite's workers share the cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def make_samples(ds, record, rollout=2):
     rec = record(0, nx=12, ny=12, num_scales=3, total_hours=6, substeps=4)
     scalers = ds.fit_dataset_scalers([rec], SCALER_KINDS)

@@ -53,15 +53,6 @@ CASES = ("GNN_L", "GNN_A", "GAT", "learned_pooling")
 MICRO = dict(hid_features=8, K=2, mlp_layers=2, learned_residuals=True, with_WL=True)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread, as tests/test_torch_port_mesh.py."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def samples():
     """(JAX samples, port samples) of tests/test_torch_port_mesh.py."""

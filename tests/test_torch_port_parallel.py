@@ -111,19 +111,6 @@ def assert_trees_equal(got, want, path="plan"):
 
 # ---------------------------------------------------------------- shared problems
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread while this file runs: the ring path runs
-    thousands of small ops a step, which take as long on one thread alone,
-    and under the suite's parallel workers no longer wait on
-    oversubscribed thread pools (on 8 threads its CLI test ran ~50x slower
-    there than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def banded():
     """The 64-row banded graph of tests/test_dist_swegnn.py with its ELL table

@@ -20,6 +20,7 @@ from mswe_gnn_tpu_torch.ops import band_hop as band_ops
 from mswe_gnn_tpu_torch.ops import build as kernel_build
 from mswe_gnn_tpu_torch.ops import hop as hop_ops
 from mswe_gnn_tpu_torch.ops.band_hop import attach_band_plan
+import tests.torch_port_common  # noqa: F401  (PyTorch on one thread)
 
 FWD = "_ZN4mswe14hop_fwd_kernelI13__nv_bfloat16Li8ELi1ENS_7EllAddrEEEvPKT_S5_T2_S5_PS3_iiiiiii"
 BWD = "_ZN4mswe14hop_bwd_kernelIfLi4ELi2ENS_8BandAddrEEEvPKT_S4_T2_S4_S4_PKiS8_PS2_S9_S9_iiiiiiii"
@@ -267,20 +268,9 @@ def test_union_launch_counts_and_graph_rows(bench32):
         assert torch.equal(union.node_mask[rows], sample.node_mask)
 
 
-@pytest.fixture
-def one_thread():
-    """PyTorch on one thread for the test: the ring path's small ops take as
-    long on one thread alone and do not wait on oversubscribed thread pools
-    under the suite's parallel workers (tests/test_torch_port_parallel.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("kw", [{}, {"overlap": True}, {"halo_width": 2}],
                          ids=["per_hop", "overlap", "wide"])
-def test_ring_launch_counts_are_the_ring_layers(bench32, monkeypatch, one_thread, kw):
+def test_ring_launch_counts_are_the_ring_layers(bench32, monkeypatch, kw):
     """Phase 13's launch expectation (``ring_hops_per_step``) is what one ring
     step of the bench model calls the hop with, by ``(Nd, Ns)``, on the
     32x32 bench graph in 2 parts; every called shape has a plan table

@@ -28,6 +28,7 @@ from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sam
 from mswe_gnn_tpu_torch.graph import concat_graphs, stack_graphs
 from mswe_gnn_tpu_torch.training.rollout import rollout, rollout_batch
 from mswe_gnn_tpu_torch.utils import profiling
+import tests.torch_port_common  # noqa: F401  (PyTorch on one thread)
 
 PY_FRAME = re.compile(r"^(\S+\.py)\(\d+\): ")
 
@@ -179,8 +180,6 @@ def _reads_in_sync_spans(fn) -> dict:
 
 @pytest.fixture(scope="module")
 def bench_models():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     out = {}
     for model in ("MSGNN", "GNN"):
         sample, _ = build_bench_sample(16, 16, 8, num_scales=3 if model == "MSGNN" else 1)
@@ -190,8 +189,7 @@ def bench_models():
         else:
             built = build_pareto_gnn_model(sample, device="cpu", hid_features=8, K=1)
         out[model] = (sample, *built)
-    yield out
-    torch.set_num_threads(threads)
+    return out
 
 
 @pytest.mark.parametrize("model, unit, reads, bincounts", [

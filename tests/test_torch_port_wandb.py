@@ -246,17 +246,7 @@ def test_sweep_cli(tmp_path, fake_wandb, monkeypatch):
     assert len(fake_wandb.agent_calls) == 1
 
 
-@pytest.fixture
-def one_thread():
-    """PyTorch on one thread: many small ops a step, and the suite's
-    workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_sweep_trial_on_cpu(tmp_path, fake_wandb, monkeypatch, one_thread):
+def test_sweep_trial_on_cpu(tmp_path, fake_wandb, monkeypatch):
     """One real trial of the port at the micro config through ``main
     sweep``: every epoch's record reaches the agent's run, the ``Trainer``
     calls ``watch_fn`` on every epoch (histograms of every leaf, finite),

@@ -9,6 +9,15 @@ from mswe_gnn_tpu.data.synthetic import generate_dataset as jax_generate
 from mswe_gnn_tpu_torch.data import dataset as port_dataset
 from mswe_gnn_tpu_torch.data.synthetic import generate_dataset as port_generate
 
+# PyTorch on one thread for the whole test process, set once at import: every
+# xdist worker collects every test file, and the workers share the machine's
+# cores, which a port step's many small ops would otherwise oversubscribe.
+torch.set_num_threads(1)
+try:
+    torch.set_num_interop_threads(1)
+except RuntimeError:  # inter-op work already started in this process
+    pass
+
 SCALER_KINDS = {"area_scaler": "standard", "edge_length_scaler": "standard"}
 # small but fast: the verify recipe's 16x16, 3-scale corpus
 GEN_KW = dict(seed=0, nx=16, ny=16, num_scales=3, total_hours=12, substeps=8)
