@@ -38,7 +38,8 @@ def reading(spec: dict, seed: int, device, fault=None, control=False) -> dict:
     mesh = inputs.make_mesh(cfg["grid"], seed)
     scenarios = inputs.make_scenarios(mesh, cfg["frames"], traffic["scenarios"], seed)
     with faults.planted(fault, traffic["mode"]):
-        mode = modes.MODES[traffic["mode"]](cfg, traffic, seed, device, mesh, scenarios)
+        mode = modes.MODES[traffic["mode"]](cfg, spec["arch"], traffic, seed, device, mesh,
+                                            scenarios)
         mode.warm()
         for i in range(len(getattr(mode, "graphs", ()))):
             mode.unit(i)

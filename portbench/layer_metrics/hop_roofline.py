@@ -1,7 +1,8 @@
 """The hop kernels' share of their byte bound, in %: the least time the
-hops of a unit need (``counts.hop_bytes`` at the card's HBM bandwidth) over
-the device time of the kernels ``counts.HOP_KERNELS`` names in the traced
-slice, a unit. None when no such kernel ran."""
+hops of a unit need (the architecture's ``kernel_bytes``, family ``"hop"``,
+at the card's HBM bandwidth) over the device time of the kernels its
+``KERNELS["hop"]`` names in the traced slice, a unit. None when no such
+kernel ran."""
 
 
 def read(ctx):

@@ -1,6 +1,7 @@
 """The whole step's share of the card's dense peak for the configuration's
-compute dtype, in %: the FLOPs a unit needs (``counts.forward_flops``, three
-forward passes a train step) over the untraced window's seconds a unit."""
+compute dtype, in %: the FLOPs a unit needs (the architecture's
+``forward_flops``, three forward passes a train step) over the untraced
+window's seconds a unit."""
 
 
 def read(ctx):

@@ -3,7 +3,9 @@
 ``training.rollout.rollout``) or a ``train`` step (``training.train.train_step``
 on a union). Each mode builds its inputs through the port's data path,
 warms up, runs a unit on call, and afterwards checks what its units produced
-against the plain reference (``reference/model.py``).
+against the plain reference: the ``Reference`` of the configuration's
+architecture module (``architectures/<name>.py``), which also counts a
+unit's FLOPs and kernel bytes.
 
 A mode keeps from its window only what the check needs: for a rollout the
 predictions of one of each union's rollouts, drawn from the seed; for
@@ -45,15 +47,19 @@ def real_rows(spec, num_graphs: int, g: int, raw_counts) -> torch.Tensor:
 
 class Mode:
     """What both modes share: the mesh and scenarios from the seed, the
-    model with its weights, the shapes for the counts."""
+    model with its weights, the shapes for the counts; ``arch``, the
+    architecture's module, for the reference and the counts."""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device, mesh, scenarios):
-        self.cfg, self.traffic, self.seed = cfg, traffic, seed
+    train = False
+
+    def __init__(self, cfg: dict, arch, traffic: dict, seed: int, device, mesh, scenarios):
+        self.cfg, self.arch, self.traffic, self.seed = cfg, arch, traffic, seed
         self.device = torch.device(device)
         self.batch = traffic["batch"]
         self.mesh, self.scenarios = mesh, scenarios
         self.rng = np.random.default_rng([seed, 2])
         self.raw_counts = [len(m["area"]) for m in mesh["meshes"]]
+        self.shapes = counts.shapes(mesh)
         self.failed = 0
 
     def model(self, sample) -> None:
@@ -65,13 +71,18 @@ class Mode:
                              sample.edge_attr.shape[1])
 
     def _reference(self, precision=None):
-        return ref_model.Reference(self.cfg["model"], self.mesh, self.cfg["previous_t"],
+        return self.arch.Reference(self.cfg["model"], self.mesh, self.cfg["previous_t"],
                                    self.device, precision)
 
     def flops_per_model_step(self) -> int:
         s, d, e = self.sample_shape
-        return counts.forward_flops(self.cfg["model"], counts.shapes(self.mesh),
-                                    s + int(self.cfg["model"]["with_WL"]), d, e)
+        return self.arch.forward_flops(self.cfg["model"], self.shapes,
+                                       s + int(self.cfg["model"]["with_WL"]), d, e)
+
+    def kernel_bytes_per_unit(self) -> dict:
+        """Bytes of each of the architecture's kernel families a unit needs."""
+        per_step = self.arch.kernel_bytes(self.cfg["model"], self.shapes, train=self.train)
+        return {k: self.model_steps_per_unit * self.batch * v for k, v in per_step.items()}
 
 
 class RolloutMode(Mode):
@@ -115,10 +126,6 @@ class RolloutMode(Mode):
     def flops_per_unit(self) -> int:
         return self.steps * self.batch * self.flops_per_model_step()
 
-    def hop_bytes_per_unit(self) -> int:
-        return self.steps * self.batch * counts.hop_bytes(
-            self.cfg["model"], counts.shapes(self.mesh), train=False)
-
     def release(self) -> None:
         del self.graphs, self.params
         if self.device.type == "cuda":
@@ -156,6 +163,7 @@ class RolloutMode(Mode):
 
 class TrainMode(Mode):
     traced_units = 3
+    train = True
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -211,10 +219,6 @@ class TrainMode(Mode):
 
     def flops_per_unit(self) -> int:
         return 3 * self.model_steps_per_unit * self.batch * self.flops_per_model_step()
-
-    def hop_bytes_per_unit(self) -> int:
-        return self.model_steps_per_unit * self.batch * counts.hop_bytes(
-            self.cfg["model"], counts.shapes(self.mesh), train=True)
 
     def release(self) -> None:
         del self.unions, self.params, self.opt_state, self.optimizer

@@ -1,14 +1,12 @@
-"""The plain reference: mSWE-GNN (MSGNN) and the single-scale SWE-GNN in
-float32 PyTorch on unpadded arrays, its rollout loop, and its 6-step
-pushforward loss with the optimizer's update.
+"""The plain reference's shared part: float32 PyTorch on unpadded arrays,
+the encoders, MLPs and decoder of the mSWE-GNN family, the rollout loop,
+and the 6-step pushforward loss with the optimizer's update. Each
+architecture's forward pass is a subclass of ``Reference`` in its own module,
+``architectures/<name>.py``, which the configuration names.
 
 It follows the published model (Bentivoglio et al., "Multi-scale hydraulic
 graph neural networks for flood modelling"; reference code models/gnn.py
-and models/models.py of sdat2/mSWE-GNN) literally: every SWE-GNN layer runs
-over the whole node array with the edges of its scale, pooling is a scatter
-mean that replaces the node array, un-pooling is an edge-feature-less
-SWE-GNN over the transfer edges, and each hop sums the messages of the
-active edges onto their destinations with ``index_add``. Nothing here pads,
+and models/models.py of sdat2/mSWE-GNN) literally. Nothing here pads,
 tables, fuses or batches; it imports torch and numpy only and takes from the
 caller the raw inputs (``reference/inputs.py``) and the weights the
 benchmark drew.
@@ -105,14 +103,15 @@ def topology(mesh: dict) -> dict:
 class Reference:
     """One graph: the model of ``model_cfg`` (the configuration's model
     dict) on ``mesh``'s topology, ``previous_t`` input frames, on
-    ``device``."""
+    ``device``. What every architecture shares: the topology, the MLP,
+    activations, encoders and decoder, and the loops. An architecture's
+    module subclasses it and gives ``forward``; ``only_finest`` says
+    whether the loss counts the finest scale's rows alone."""
+
+    only_finest = False
 
     def __init__(self, model_cfg: dict, mesh: dict, previous_t: int, device,
                  precision: Precision | None = None):
-        unsupported = {k: model_cfg.get(k) for k in ("learned_pooling", "upwind_mode")
-                       if model_cfg.get(k)}
-        if unsupported:
-            raise ValueError(f"the reference does not implement {unsupported}")
         self.cfg = model_cfg
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -155,39 +154,6 @@ class Reference:
             x = self.act(self.cfg["mlp_activation"], a, x)
         return x
 
-    def swegnn(self, params, K, x_s, x_d, edges, edge_attr, filters, gradient, normalize):
-        """One SWE-GNN layer over the whole node array: ``out = H_0 x_d``,
-        then K hops ``out += H_k sum_j act_ij (out_i - out_j) s_ij`` (without
-        ``gradient``: ``s_ij out_j``), ``s_ij`` the normalised edge MLP of
-        ``[x_s_j | x_s_i | x_d_j | x_d_i | e_ji]`` over edges j -> i."""
-        src, dst = edges[0], edges[1]
-        feats = [x_s[src], x_s[dst], x_d[src], x_d[dst]]
-        if edge_attr is not None:
-            feats.append(edge_attr)
-        s = self.mlp(params["edge_mlp"], torch.cat(feats, dim=1))
-        if normalize:
-            norm = torch.linalg.vector_norm(s, dim=1, keepdim=True)
-            s = torch.where(norm > 0, s / torch.where(norm > 0, norm, 1.0), 0.0)
-        s = self.rnd.hop(s)
-        out = self.mm(x_d, params["filters"][0]["w"]) if filters else x_d
-        for k in range(K):
-            out = self.rnd.hop(out)
-            active = out.sum(dim=1) != 0
-            live = (active[src] | active[dst]).to(out.dtype)[:, None]
-            msg = (out[dst] - out[src]) * s if gradient else s * out[src]
-            agg = torch.zeros_like(out).index_add_(0, dst, msg * live)
-            if filters:
-                agg = self.rnd.hop(self.mm(agg, params["filters"][k + 1]["w"]))
-            out = out + agg
-        return out
-
-    def processor(self, params, K, x_s, x_d, edges, edge_attr):
-        """A processor layer: the configuration's filter, gradient and
-        normalisation settings, over the encoded edge features."""
-        return self.swegnn(params, K, x_s, x_d, edges, edge_attr,
-                           self.cfg["with_filter_matrix"], self.cfg["with_gradient"],
-                           self.cfg["normalize"])
-
     def _encode(self, params, x_static, x_dyn):
         x_s, x_d = x_static, x_dyn
         if self.cfg["with_WL"]:
@@ -210,64 +176,10 @@ class Reference:
         wd = out[:, 0] * (out[:, 0].abs() > 1e-4)
         return torch.stack([wd, out[:, 1] * (wd != 0)], dim=1)
 
-    def msgnn(self, params, x_static, x_dyn, edge_attr):
-        """The V-cycle of reference models/gnn.py:267-350."""
-        cfg = self.cfg
-        L = len(self.node_ptr) - 1
-        K = cfg["K"] if isinstance(cfg["K"], list) else [cfg["K"]] * L
-        ks = K + K[::-1][1:]
-        x_s, x_d = self._encode(params, x_static, x_dyn)
-        x_down = torch.zeros_like(x_d)
-        x_up = torch.zeros_like(x_d)
-
-        def on(scale):
-            return (self.scale_of == scale).to(x_d.dtype)[:, None]
-
-        def scale_edges(s):
-            return self.edges[s], edge_attr[self.edge_ptr[s]:self.edge_ptr[s + 1]]
-
-        for i in range(L - 1):
-            e, ea = scale_edges(i)
-            x_d = self.processor(params["gnn_processor"][i], ks[i], x_s, x_d, e, ea)
-            x_down = x_down + x_d * on(i)
-            coarse, fine = self.intra[i]
-            sums = torch.zeros_like(x_d).index_add_(0, coarse, x_d[fine])
-            cnt = torch.zeros(self.n, device=x_d.device).index_add_(
-                0, coarse, torch.ones_like(coarse, dtype=x_d.dtype))
-            x_d = torch.where(cnt[:, None] > 0, sums / cnt.clamp_min(1.0)[:, None], 0.0)
-        x_down = x_down + x_d
-        for i in range(L):
-            scale = L - 1 - i
-            e, ea = scale_edges(scale)
-            x_d = self.processor(params["gnn_processor"][L - 1 + i], ks[L - 1 + i],
-                                 x_s, x_d, e, ea)
-            x_up = x_up + x_d * on(scale)
-            if i < L - 1:
-                x_d = self.swegnn(params["intra_scale_gnn"][i], 1, x_s, x_d,
-                                  self.intra[scale - 1], None, filters=False, gradient=False,
-                                  normalize=True)
-                if cfg["skip_connections"]:
-                    x_d = x_d + x_down * on(scale - 1)
-        h = self.act(cfg["gnn_activation"], params["gnn_act"], x_up)
-        return self._decode(params, h, x_dyn)
-
-    def gnn(self, params, x_static, x_dyn, edge_attr):
-        """The single-scale SWE-GNN of reference models/gnn.py:13-152."""
-        x_s, x_d = self._encode(params, x_static, x_dyn)
-        h = x_d
-        for conv in params["gnn_processor"]:
-            h = self.processor(conv, self.cfg["K"], x_s, x_d, self.edges[0], edge_attr)
-            h = self.act(self.cfg["gnn_activation"], params["gnn_act"], h)
-            x_d = h
-        return self._decode(params, h, x_dyn)
-
     def forward(self, params, x_static, x_dyn, edge_attr):
-        """-> predictions ``[N, 2]`` of (h, |q|) at the next frame."""
-        if self.cfg["model_type"] == "MSGNN":
-            return self.msgnn(params, x_static, x_dyn, edge_attr)
-        if self.cfg["model_type"] == "GNN" and self.cfg.get("type_GNN") == "SWEGNN":
-            return self.gnn(params, x_static, x_dyn, edge_attr)
-        raise ValueError("the reference implements the MSGNN and the SWE-GNN only")
+        """-> predictions ``[N, 2]`` of (h, |q|) at the next frame: the
+        architecture's own (``architectures/<name>.py``)."""
+        raise NotImplementedError("an architecture's Reference gives forward")
 
     def encode_edges(self, params, edge_attr):
         return self.mlp(params["edge_encoder"], edge_attr) if self.cfg["edge_mlp"] else edge_attr
@@ -318,7 +230,8 @@ def target(feats, start, p, steps, device):
 def error_sums(ref: Reference, params, feats, start: int, steps: int, only_finest: bool):
     """The pushforward unroll's loss pieces of one graph: per step the sums
     of squared errors ``[T, 2]`` and the counts ``[T]`` over the rows where
-    prediction or target is nonzero (finest scale only for the MSGNN)."""
+    prediction or target is nonzero (the finest scale's alone with
+    ``only_finest``)."""
     preds = ref.unroll(params, feats, steps, start)
     diff = preds - target(feats, start, ref.p, steps, ref.device)
     if only_finest:
@@ -339,10 +252,9 @@ def loss_and_grads(ref: Reference, params, graphs, train: dict):
     and its gradient, a graph at a time: the pooled sums and counts first
     without gradients, then each graph's sums again with gradients, weighted
     by the loss's derivative in them."""
-    only_finest = ref.cfg["model_type"] == "MSGNN"
     steps = train["rollout_steps"]
     with torch.no_grad():
-        pieces = [error_sums(ref, params, f, s, steps, only_finest) for f, s in graphs]
+        pieces = [error_sums(ref, params, f, s, steps, ref.only_finest) for f, s in graphs]
     sums = torch.stack([p[0] for p in pieces]).sum(0).requires_grad_(True)
     counts = torch.stack([p[1] for p in pieces]).sum(0)
     loss = rmse_loss(sums, counts, train["velocity_scaler"])
@@ -353,7 +265,7 @@ def loss_and_grads(ref: Reference, params, graphs, train: dict):
     work_leaves = leaves_of(work)
     for f, s in graphs:
         with torch.enable_grad():
-            g_sums, _ = error_sums(ref, work, f, s, steps, only_finest)
+            g_sums, _ = error_sums(ref, work, f, s, steps, ref.only_finest)
             part = torch.autograd.grad((g_sums * d_sums).sum(), work_leaves, allow_unused=True)
         grads = [a if b is None else a + b for a, b in zip(grads, part)]
     return loss.detach(), grads

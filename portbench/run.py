@@ -9,8 +9,19 @@ and the port (``mswe_gnn_tpu_torch``). The cell names a configuration
 the metrics it reports are the ``BENCHMARK.json`` entries that list it, or
 that list no cells (a per-layer metric without ``workloads``: every cell that
 reports the end-to-end metric it moves), each read by its own file
-(``end_to_end/<name>.py``, ``layer_metrics/<family>.py``). A cell is added by
-files and entries alone.
+(``end_to_end/<name>.py``, ``layer_metrics/<family>.py``). The configuration
+names its architecture (``"architecture"``), whose module
+``architectures/<name>.py`` holds the plain reference's forward pass, the
+FLOP count and the kernels' byte counts (``architectures/__init__.py``).
+
+So nothing here is edited to add a cell. A configuration of a new
+architecture adds, beside its ``BENCHMARK.json`` entries: the architecture's
+module (``architectures/``), its configuration file (``configs/``), the
+traffic mix of each cell (``traffic/``), each cell's limits
+(``limits/<cell>.json``) and the readers of its new metrics
+(``layer_metrics/``, such as its kernels' ``<kernel>_roofline``). A
+configuration of a known architecture, or a cell of a known configuration,
+adds the files of that list it lacks.
 
 A run: inputs and weights from the seed, the inputs through the port's data
 path, a warm-up of the cell's own shapes (set-up ends here: ``setup_s``), a
@@ -43,8 +54,8 @@ class CellError(RuntimeError):
 
 
 def load_cell(workload: str, bench_file: str = "BENCHMARK.json", root: str = HERE) -> dict:
-    """The cell ``workload`` of ``bench_file`` with its configuration,
-    traffic and metric entries."""
+    """The cell ``workload`` of ``bench_file`` with its configuration, its
+    architecture's module, its traffic and its metric entries."""
     with open(bench_file) as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -54,25 +65,44 @@ def load_cell(workload: str, bench_file: str = "BENCHMARK.json", root: str = HER
     config = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     with open(config["file"]) as f:
         cfg = json.load(f)
+    if "architecture" not in cfg:
+        raise CellError(f"the configuration {config['file']} has no \"architecture\" key")
     with open(os.path.join(root, "traffic", f"{cell['traffic']}.json")) as f:
         traffic = json.load(f)
     e2e = [m for m in bench["end_to_end"] if workload in m.get("workloads", [workload])]
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if (workload in m["workloads"] if "workloads" in m else m["moves"] in reported)]
-    return {"cell": cell, "cfg": cfg, "traffic": traffic, "end_to_end": e2e,
-            "per_layer": per_layer}
+    return {"cell": cell, "cfg": cfg, "arch": architecture(cfg["architecture"], root),
+            "traffic": traffic, "end_to_end": e2e, "per_layer": per_layer}
+
+
+def _module(kind: str, stem: str, root: str):
+    """``<root>/<kind>/<stem>.py`` loaded, or None where there is no such
+    file."""
+    path = os.path.join(root, kind, f"{stem}.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def architecture(name: str, root: str = HERE):
+    """The module of the architecture ``name``: ``<root>/architectures/<name>.py``."""
+    module = _module("architectures", name, root)
+    if module is None:
+        raise CellError(f"no architecture {name!r} in architectures/")
+    return module
 
 
 def reader(kind: str, name: str, root: str = HERE):
     """``read`` of ``<root>/<kind>/<name>.py``, else of the file of the
     name's family (the part before the first dot)."""
     for stem in (name, name.split(".")[0]):
-        path = os.path.join(root, kind, f"{stem}.py")
-        if os.path.exists(path):
-            spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{stem}", path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
+        module = _module(kind, stem, root)
+        if module is not None:
             return module.read
     raise CellError(f"no reader for {name!r} in {kind}/")
 
@@ -102,7 +132,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     mesh = inputs.make_mesh(cfg["grid"], seed)
     scenarios = inputs.make_scenarios(mesh, cfg["frames"], traffic["scenarios"], seed)
     phases["inputs"] = time.perf_counter() - t0 - sum(phases.values())
-    mode = modes.MODES[traffic["mode"]](cfg, traffic, seed, device, mesh, scenarios)
+    mode = modes.MODES[traffic["mode"]](cfg, spec["arch"], traffic, seed, device, mesh,
+                                        scenarios)
     phases["graph_and_model"] = time.perf_counter() - t0 - sum(phases.values())
     mode.warm()
     phases["warm_up"] = time.perf_counter() - t0 - sum(phases.values())
@@ -133,14 +164,18 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     result = {}
     if trace:
         sl = trace_lib.profile_units(mode.unit, i, mode.traced_units, sync)
+        kernel_bytes = mode.kernel_bytes_per_unit()
         ctx = {"mode": traffic["mode"], "batch": mode.batch, "units": mode.traced_units,
                "model_steps_per_unit": mode.model_steps_per_unit,
                "device": sl["device"], "host": sl["host"],
                "unit_s": window["window_s"] / len(durations),
+               "cfg": cfg, "shapes": mode.shapes, "arch": spec["arch"],
                "flops_per_unit": mode.flops_per_unit(),
                "peak_flops": counts.PEAK_FLOPS[cfg["model"]["compute_dtype"]],
-               "hop_bytes_per_unit": mode.hop_bytes_per_unit(),
-               "hbm_bytes_per_s": counts.HBM_BYTES_PER_S, "hop_kernels": counts.HOP_KERNELS,
+               "kernel_bytes_per_unit": kernel_bytes,
+               "hop_bytes_per_unit": kernel_bytes.get("hop"),
+               "hop_kernels": spec["arch"].KERNELS.get("hop", ()),
+               "hbm_bytes_per_s": counts.HBM_BYTES_PER_S,
                "graph_build_s": mode.graph_build_s}
         result["metrics"] = metrics(spec["per_layer"], "layer_metrics", ctx, root)
         dev.update(busy_s=trace_lib.busy_us(sl["device"]) * 1e-6, window_s=sl["wall_s"])

@@ -4,7 +4,9 @@ No module under ``portbench/`` imports JAX, jaxlib, flax or the JAX package
 (``mswe_gnn_tpu``), names compared whole by their top-level part (the port,
 ``mswe_gnn_tpu_torch``, is another name). The plain reference
 (``portbench/reference/``) imports neither the port, nor ``tests``, nor the
-rest of the harness. Without a card a run exits non-zero and prints no
+rest of the harness; an architecture's module (``portbench/architectures/``)
+imports of the harness only the reference, the counts and other
+architectures. Without a card a run exits non-zero and prints no
 result."""
 import ast
 import os
@@ -45,6 +47,19 @@ def test_no_jax_import(path):
 def test_reference_imports_nothing_of_the_program(path):
     bad = [m for m in imported(path)
            if m.split(".")[0] in FORBIDDEN | {"mswe_gnn_tpu_torch", "tests", "portbench"}]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(sources("architectures")),
+                         ids=lambda p: os.path.relpath(p, HERE))
+def test_architecture_imports_nothing_of_the_program(path):
+    """An architecture's module is part of the yardstick: of the harness it
+    imports the shared reference, the shared counts and other architectures
+    alone."""
+    shared = ("portbench.reference", "portbench.counts", "portbench.architectures")
+    bad = [m for m in imported(path)
+           if m.split(".")[0] in FORBIDDEN | {"mswe_gnn_tpu_torch", "tests"}
+           or (m.split(".")[0] == "portbench" and not m.startswith(shared))]
     assert not bad, f"{path} imports {bad}"
 
 

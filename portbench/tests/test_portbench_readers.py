@@ -56,12 +56,12 @@ def test_end_to_end_readers(name, mode, want):
     assert run.reader("end_to_end", name)(w) == pytest.approx(want)
 
 
-def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path, tiny_cell):
-    """A copy of the harness's data with one more traffic mix, cell, limits
-    file and per-layer reader: the harness runs the new cell and reports
-    the new metric, with no code edited."""
+def harness_copy(tmp_path):
+    """A copy of the harness's data (every directory a cell's files live
+    in) and of ``BENCHMARK.json``, its configurations pointed at the copy,
+    with one more traffic mix: two scenarios as one union."""
     root = tmp_path / "portbench"
-    for d in ("traffic", "configs", "limits", "end_to_end", "layer_metrics"):
+    for d in ("architectures", "traffic", "configs", "limits", "end_to_end", "layer_metrics"):
         shutil.copytree(os.path.join(HERE, d), root / d)
     with open(os.path.join(os.path.dirname(HERE), "BENCHMARK.json")) as f:
         bench = json.load(f)
@@ -70,20 +70,38 @@ def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path, tiny_cell):
     (root / "traffic" / "rollout.b2.json").write_text(json.dumps(
         {"mode": "rollout", "batch": 2, "unions": 1, "scenarios": 2,
          "why": "two scenarios as one union"}))
-    bench["workloads"].append({"name": "gnn.rollout.b2", "config": "gnn-pareto",
-                               "traffic": "rollout.b2", "chips": 1, "why": "a test"})
-    next(m for m in bench["end_to_end"] if m["name"] == "sims_per_s")["workloads"].append(
-        "gnn.rollout.b2")
+    return root, bench
+
+
+def add_cell(bench, root, name, config):
+    """The cell ``name`` of ``config`` under ``rollout.b2``, reporting
+    ``sims_per_s``, with a copy of a rollout cell's limits."""
+    bench["workloads"].append({"name": name, "config": config, "traffic": "rollout.b2",
+                               "chips": 1, "why": "a test"})
+    next(m for m in bench["end_to_end"] if m["name"] == "sims_per_s")["workloads"].append(name)
+    shutil.copy(root / "limits" / "msgnn.rollout.b8.json", root / "limits" / f"{name}.json")
+
+
+def write_bench(tmp_path, bench):
+    bench_file = tmp_path / "BENCHMARK.json"
+    bench_file.write_text(json.dumps(bench))
+    return str(bench_file)
+
+
+def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path, tiny_cell):
+    """A copy of the harness's data with one more traffic mix, cell, limits
+    file and per-layer reader: the harness runs the new cell and reports
+    the new metric, with no code edited."""
+    root, bench = harness_copy(tmp_path)
+    add_cell(bench, root, "gnn.rollout.b2", "gnn-pareto")
     bench["per_layer"].append({"name": "units_traced", "unit": "units", "better": "higher",
                                "source": "device_trace", "layer": "device",
                                "moves": "sims_per_s", "workloads": ["gnn.rollout.b2"]})
-    shutil.copy(root / "limits" / "msgnn.rollout.b8.json", root / "limits" / "gnn.rollout.b2.json")
     (root / "layer_metrics" / "units_traced.py").write_text(
         "def read(ctx):\n    return ctx['units']\n")
-    bench_file = tmp_path / "BENCHMARK.json"
-    bench_file.write_text(json.dumps(bench))
+    bench_file = write_bench(tmp_path, bench)
 
-    spec = run.load_cell("gnn.rollout.b2", str(bench_file), str(root))
+    spec = run.load_cell("gnn.rollout.b2", bench_file, str(root))
     small = tiny_cell("gnn.train.b8")
     spec["cfg"] = small["cfg"]
     assert [m["name"] for m in spec["end_to_end"]] == ["sims_per_s", "setup_s"]
@@ -91,3 +109,94 @@ def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path, tiny_cell):
     assert result["correct"] and set(result["metrics"]) == {"sims_per_s", "setup_s"}
     result, _ = run.run_cell(spec, 2 ** 31 + 3, 0.2, True, "cpu", 0.0, str(root))
     assert result["metrics"]["units_traced"] == {"value": 2.0, "unit": "units"}
+
+
+TOY = '''"""A toy architecture: the SWE-GNN's reference, three times its FLOPs,
+and a kernel family of its own."""
+from portbench.architectures import swegnn
+
+KERNELS = {**swegnn.KERNELS, "toy": ("aten::mm", "aten::addmm")}
+TOY_BYTES = 1_000_000
+
+
+class Reference(swegnn.Reference):
+    def forward(self, params, x_static, x_dyn, edge_attr):
+        return super().forward(params, x_static, x_dyn, edge_attr)
+
+
+def forward_flops(model, shapes, static_in, dynamic_in, edge_in):
+    return 3 * swegnn.forward_flops(model, shapes, static_in, dynamic_in, edge_in)
+
+
+def kernel_bytes(model, shapes, train):
+    return {**swegnn.kernel_bytes(model, shapes, train), "toy": TOY_BYTES}
+'''
+TOY_ROOFLINE = '''def read(ctx):
+    names = ctx["arch"].KERNELS["toy"]
+    # on the CPU the ops run on the host: the trace has no device events
+    events = ctx["device"] or ctx["host"]
+    us = sum(e - s for name, s, e in events if any(k in name for k in names))
+    if not us:
+        return None
+    bound_s = ctx["kernel_bytes_per_unit"]["toy"] / ctx["hbm_bytes_per_s"]
+    return 100.0 * bound_s / (us * 1e-6 / ctx["units"])
+'''
+
+
+def test_a_configuration_of_a_new_architecture_is_added_by_files_alone(
+        tmp_path, tiny_cell, monkeypatch):
+    """A copy of the harness's data with an architecture module, a
+    configuration naming it, a cell with its traffic and limits, and a
+    reader of the architecture's own kernel family: the toy cell is
+    correct, its ``model_mfu`` follows the toy's FLOPs (three times those
+    of the same model as ``swegnn``), and its reader reads the toy's bytes."""
+    root, bench = harness_copy(tmp_path)
+    (root / "architectures" / "toy.py").write_text(TOY)
+    with open(root / "configs" / "gnn-pareto.json") as f:
+        cfg = json.load(f)
+    (root / "configs" / "toy.json").write_text(json.dumps(dict(cfg, name="toy",
+                                                               architecture="toy")))
+    bench["configs"].append({"name": "toy", "source": "a test",
+                             "file": str(root / "configs" / "toy.json"), "reduced": [],
+                             "why": "a test"})
+    for cell, config in (("gnn.rollout.b2", "gnn-pareto"), ("toy.rollout.b2", "toy")):
+        add_cell(bench, root, cell, config)
+        next(m for m in bench["per_layer"] if m["name"] == "model_mfu.rollout")[
+            "workloads"].append(cell)
+    bench["per_layer"].append({"name": "toy_roofline", "unit": "%", "better": "higher",
+                               "source": "device_trace", "layer": "toy kernels",
+                               "moves": "sims_per_s", "workloads": ["toy.rollout.b2"]})
+    (root / "layer_metrics" / "toy_roofline.py").write_text(TOY_ROOFLINE)
+    bench_file = write_bench(tmp_path, bench)
+
+    seen = []                             # the per-layer context of each traced run
+    metrics = run.metrics
+    monkeypatch.setattr(run, "metrics", lambda entries, kind, data, root=run.HERE: (
+        seen.append(data), metrics(entries, kind, data, root))[1])
+    small = tiny_cell("gnn.train.b8")["cfg"]
+    results = {}
+    for cell in ("gnn.rollout.b2", "toy.rollout.b2"):
+        spec = run.load_cell(cell, bench_file, str(root))
+        spec["cfg"] = dict(small, architecture=spec["cfg"]["architecture"])
+        results[cell], _ = run.run_cell(spec, 2 ** 31 + 3, 0.2, True, "cpu", 0.0, str(root))
+    twin, toy = seen
+    result = results["toy.rollout.b2"]
+    assert result["correct"] and results["gnn.rollout.b2"]["correct"]
+    assert toy["flops_per_unit"] == 3 * twin["flops_per_unit"] > 0
+    assert result["metrics"]["model_mfu.rollout"]["value"] == pytest.approx(
+        100.0 * toy["flops_per_unit"] / toy["unit_s"] / toy["peak_flops"])
+    assert toy["kernel_bytes_per_unit"] == {
+        "hop": twin["kernel_bytes_per_unit"]["hop"],
+        "toy": toy["model_steps_per_unit"] * 2 * 1_000_000}
+    assert result["metrics"]["toy_roofline"]["value"] > 0
+    assert "toy_roofline" not in results["gnn.rollout.b2"]["metrics"]
+
+
+def test_a_configuration_without_its_architecture_fails_to_load(tmp_path):
+    root, bench = harness_copy(tmp_path)
+    path = root / "configs" / "gnn-pareto.json"
+    cfg = json.loads(path.read_text())
+    del cfg["architecture"]
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(run.CellError, match='"architecture"'):
+        run.load_cell("gnn.train.b8", write_bench(tmp_path, bench), str(root))

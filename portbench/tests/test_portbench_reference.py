@@ -59,7 +59,7 @@ def test_reference_rollout_follows_the_port(tiny_cell, cell):
     mcfg, params, apply_fn = system.build(cfg, sample, 7, "cpu")
     steps = sample.y.shape[-1]
     got = rollout(apply_fn, params, mcfg, sample, steps, device="cpu")
-    ref = ref_model.Reference(cfg["model"], mesh, cfg["previous_t"], "cpu")
+    ref = spec["arch"].Reference(cfg["model"], mesh, cfg["previous_t"], "cpu")
     want = ref_model.rollout(ref, params, ref_model.features(mesh, scen[1], 3), steps)
     rows = modes.real_rows(sample.spec, 1, 0, [len(m["area"]) for m in mesh["meshes"]])
     assert float((got[rows] - want).abs().max()) <= 1e-6 * float(want.abs().max())
@@ -87,7 +87,7 @@ def test_reference_train_steps_follow_the_port(tiny_cell, cell):
                                 rollout_steps=3, opts=opts, multiscale=cell.startswith("msgnn"),
                                 optimizer=optimizer, device="cpu")
         losses.append(float(loss))
-    ref = ref_model.Reference(cfg["model"], mesh, cfg["previous_t"], "cpu")
+    ref = spec["arch"].Reference(cfg["model"], mesh, cfg["previous_t"], "cpu")
     feats = [ref_model.features(mesh, s, 3) for s in scen]
     batches = [[(feats[g], starts[g][u]) for g in range(4)] for u in range(2)]
     ref_losses, _, after = ref_model.train_steps(ref, before, batches, cfg["train"])
