@@ -6,6 +6,17 @@ an activation after *every* linear including the last. Weights are stored
 ``[in, out]`` as in the JAX package, so its parameters load unchanged
 (compat/jax_params.py).
 
+Two options of ``init_mlp`` serve MeshGraphNets (models/meshgraphnet.py)
+and change nothing at their defaults. The tree records both, and
+``apply_mlp`` does what it finds: ``activate_final=False`` puts ``None`` in
+the last ``acts`` slot, which leaves the last linear bare; ``layer_norm=True``
+puts a LayerNorm's ``{"scale", "bias"}`` (ones, zeros) in the last layer's
+``norms`` slot, applied to the output (eps 1e-5, in float32 whatever the
+``compute_dtype``). The JAX MLP's ``norms`` slots mean something else (a
+LayerNorm after every linear, applied by a flag) and it has no ``None``
+slot; compat/jax_params.py loads only trees with neither, which are the
+same in both packages.
+
 Precision: ``matmul`` with a ``compute_dtype`` of bfloat16 rounds both
 operands to bf16 and multiplies them in float32, giving a float32 result, as
 the JAX package's ``jnp.matmul(..., preferred_element_type=float32)`` does
@@ -19,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from mswe_gnn_tpu_torch.models.activations import apply_activation, init_activation
 
@@ -57,12 +69,16 @@ def mlp_sizes(input_size: int, output_size: int, hidden_size: int, n_layers: int
 
 def init_mlp(gen: torch.Generator, input_size: int, output_size: int,
              hidden_size: int = 32, n_layers: int = 2, bias: bool = False,
-             activation: Optional[str] = "relu") -> dict:
+             activation: Optional[str] = "relu", activate_final: bool = True,
+             layer_norm: bool = False) -> dict:
     layers, acts, norms = [], [], []
-    for fi, fo in mlp_sizes(input_size, output_size, hidden_size, n_layers):
+    sizes = mlp_sizes(input_size, output_size, hidden_size, n_layers)
+    for i, (fi, fo) in enumerate(sizes):
+        last = i == len(sizes) - 1
         layers.append(_torch_linear_init(gen, fi, fo, bias))
-        acts.append(init_activation(activation))
-        norms.append({})
+        acts.append(init_activation(activation) if activate_final or not last else None)
+        norms.append({"scale": torch.ones(fo), "bias": torch.zeros(fo)}
+                     if layer_norm and last else {})
     return {"layers": layers, "acts": acts, "norms": norms}
 
 
@@ -72,7 +88,12 @@ def apply_mlp(params: dict, x: torch.Tensor, activation: Optional[str] = "relu",
         x = matmul(x, lin["w"], compute_dtype)
         if "b" in lin:
             x = x + lin["b"]
-        x = apply_activation(activation, act, x)
+        if act is not None:
+            x = apply_activation(activation, act, x)
+    # the SWE-GNN flux tail of a one-layer edge MLP is an MLP of no layers
+    ln = params["norms"][-1] if params["norms"] else None
+    if ln:
+        x = F.layer_norm(x.float(), ln["scale"].shape, ln["scale"], ln["bias"], eps=1e-5)
     return x
 
 

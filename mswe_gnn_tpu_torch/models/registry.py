@@ -1,11 +1,13 @@
-"""Model registry (port of mswe_gnn_tpu/models/registry.py): the MSGNN and
-the single-scale GNN."""
+"""Model registry (port of mswe_gnn_tpu/models/registry.py): the MSGNN, the
+single-scale GNN and MeshGraphNets (``MGN``, the port's own: the JAX package
+has no counterpart)."""
 from __future__ import annotations
 
 import torch
 
 from mswe_gnn_tpu_torch import resolve_device, tree_leaves, tree_to
 from mswe_gnn_tpu_torch.models.gnn import GNNConfig, apply_gnn, init_gnn
+from mswe_gnn_tpu_torch.models.meshgraphnet import MGNConfig, apply_mgn, init_mgn
 from mswe_gnn_tpu_torch.models.msgnn import MSGNNConfig, apply_msgnn, init_msgnn
 
 
@@ -15,7 +17,16 @@ def get_model(name: str):
         return GNNConfig, init_gnn, apply_gnn
     if name == "MSGNN":
         return MSGNNConfig, init_msgnn, apply_msgnn
-    raise ValueError(f"unknown model {name!r}; options: 'GNN', 'MSGNN'")
+    if name == "MGN":
+        return MGNConfig, init_mgn, apply_mgn
+    raise ValueError(f"unknown model {name!r}; options: 'GNN', 'MSGNN', 'MGN'")
+
+
+# the SWE-GNN keys that config.with_defaults adds to every ``models`` group,
+# which MeshGraphNets has no use for
+_SWEGNN_KEYS = ("K", "type_GNN", "gnn_activation", "edge_mlp", "normalize",
+                "with_filter_matrix", "with_gradient", "learned_pooling",
+                "skip_connections", "dropout")
 
 
 def build_model(model_cfg: dict, num_node_features: int, num_edge_features: int,
@@ -32,7 +43,12 @@ def build_model(model_cfg: dict, num_node_features: int, num_edge_features: int,
     cfg_cls, init_fn, apply_fn = get_model(name)
     common = dict(num_node_features=num_node_features,
                   num_edge_features=num_edge_features, previous_t=previous_t)
-    if name == "MSGNN":
+    if name == "MGN":
+        for key in _SWEGNN_KEYS:
+            cfg_dict.pop(key, None)
+        if "n_GNN_layers" in cfg_dict:
+            common["n_gnn_layers"] = cfg_dict.pop("n_GNN_layers")
+    elif name == "MSGNN":
         common["num_scales"] = num_scales
         for key in ("n_GNN_layers", "type_GNN", "dropout"):
             cfg_dict.pop(key, None)

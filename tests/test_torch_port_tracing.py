@@ -5,7 +5,8 @@ span.
 
 The containment cases run one train step (3-step pushforward, remat) and
 one rollout of a union of two 16x16 bench graphs under torch's CPU
-profiler, MSGNN (3 scales) and the single-scale GNN at F=8, K=1, and find
+profiler, MSGNN (3 scales), the single-scale GNN at F=8, K=1 and
+MeshGraphNets (single scale, F=8, 2 blocks), and find
 every ``aten::_local_scalar_dense`` (a scalar read back to the host) and
 every ``aten::bincount`` (on CUDA it reads its input's extrema back) whose
 nearest Python frame is in the port. AdamW's reads of its step counters
@@ -26,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from mswe_gnn_tpu_torch.bench_problem import (build_bench_model, build_bench_sample,
                                               build_bench_train_step, build_pareto_gnn_model)
 from mswe_gnn_tpu_torch.graph import concat_graphs, stack_graphs
+from mswe_gnn_tpu_torch.models.registry import build_model
 from mswe_gnn_tpu_torch.training.rollout import rollout, rollout_batch
 from mswe_gnn_tpu_torch.utils import profiling
 import tests.torch_port_common  # noqa: F401  (PyTorch on one thread)
@@ -181,25 +183,38 @@ def _reads_in_sync_spans(fn) -> dict:
 @pytest.fixture(scope="module")
 def bench_models():
     out = {}
-    for model in ("MSGNN", "GNN"):
+    for model in ("MSGNN", "GNN", "MGN"):
         sample, _ = build_bench_sample(16, 16, 8, num_scales=3 if model == "MSGNN" else 1)
         if model == "MSGNN":
             built = build_bench_model(sample, device="cpu", hid_features=8, K=1,
                                       compute_dtype="float32")
-        else:
+        elif model == "GNN":
             built = build_pareto_gnn_model(sample, device="cpu", hid_features=8, K=1)
+        else:
+            built = mgn_model(sample, n_GNN_layers=2)
         out[model] = (sample, *built)
     return out
 
 
+def mgn_model(sample, **overrides):
+    """MeshGraphNets at F=8 on ``sample``, on the CPU."""
+    return build_model({"model_type": "MGN", "hid_features": 8, **overrides},
+                       num_node_features=sample.num_node_features,
+                       num_edge_features=sample.edge_attr.shape[1], num_scales=1,
+                       previous_t=sample.previous_t, device="cpu")
+
+
 @pytest.mark.parametrize("model, unit, reads, bincounts", [
     ("MSGNN", "train", 29, 5), ("MSGNN", "rollout", 14, 0),
-    ("GNN", "train", 5, 1), ("GNN", "rollout", 2, 0)])
+    ("GNN", "train", 5, 1), ("GNN", "rollout", 2, 0),
+    ("MGN", "train", 0, 0), ("MGN", "rollout", 0, 0)])
 def test_every_blocking_read_lies_in_a_sync_span(bench_models, model, unit, reads, bincounts):
     """MSGNN's train step reads 24 scalars in ``_check_rows`` (7 tables
     built by ``_msgnn_cache`` and 5 out-slot tables, two reads each) and 5
     in ``out_slot_table``'s check, and runs 5 ``bincount``s; its rollout
-    builds no out-slot table (14 reads). The GNN has one table of each."""
+    builds no out-slot table (14 reads). The GNN has one table of each.
+    MeshGraphNets prepares no tables and reads nothing back: its train
+    step blocks only for the loss's scaler."""
     sample, cfg, params, apply_fn = bench_models[model]
     if unit == "train":
         step = build_bench_train_step(sample, cfg, params, apply_fn, device="cpu", batch=2,
@@ -212,7 +227,7 @@ def test_every_blocking_read_lies_in_a_sync_span(bench_models, model, unit, read
 
         def fn():
             rollout(apply_fn, params, cfg, union, steps, device="cpu")
-    want = {("aten::_local_scalar_dense", True): reads}
+    want = {("aten::_local_scalar_dense", True): reads} if reads else {}
     if bincounts:
         want[("aten::bincount", True)] = bincounts
     assert _reads_in_sync_spans(fn) == want
@@ -220,9 +235,34 @@ def test_every_blocking_read_lies_in_a_sync_span(bench_models, model, unit, read
     synced = sum(v["count"] for k, v in table.items() if k.startswith(profiling.SYNC))
     # a bincount blocks twice on CUDA, and the loss's scaler is one blocking copy
     assert synced == reads + 2 * bincounts + (unit == "train")
-    assert table["mswe.prepare_graph"]["count"] == 1
+    assert table.get("mswe.prepare_graph", {"count": 0})["count"] == int(model != "MGN")
     phases = {"mswe.train.forward", "mswe.train.backward", "mswe.train.optimizer"}
     assert phases <= set(table) if unit == "train" else not phases & set(table)
+
+
+@pytest.mark.parametrize("unit", ["rollout", "train"])
+def test_mgn_spans_count_each_block_and_each_call(unit):
+    """Of MeshGraphNets' five spans, each block span counts once a block
+    and encode and decode once a model call: 15 and 1 a forward. A train
+    step under remat runs every forward twice (the recompute in the
+    backward)."""
+    sample, _ = build_bench_sample(16, 16, 8, num_scales=1)
+    cfg, params, apply_fn = mgn_model(sample, n_GNN_layers=15)
+    steps = 3
+    if unit == "rollout":
+        rollout(apply_fn, params, cfg, sample, steps, device="cpu")
+        forwards = steps
+    else:
+        step = build_bench_train_step(sample, cfg, params, apply_fn, device="cpu",
+                                      multiscale=False)
+        step.rollout_steps = steps
+        step()
+        forwards = 2 * steps
+    counts = {k: v["count"] for k, v in profiling.span_table().items()
+              if k.startswith("mswe.mgn.")}
+    assert counts == {"mswe.mgn.encode": forwards, "mswe.mgn.edge_update": 15 * forwards,
+                      "mswe.mgn.aggregate": 15 * forwards,
+                      "mswe.mgn.node_update": 15 * forwards, "mswe.mgn.decode": forwards}
 
 
 def test_graph_build_times_its_slot_tables():
