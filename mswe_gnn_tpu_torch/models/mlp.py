@@ -18,19 +18,28 @@ slot; compat/jax_params.py loads only trees with neither, which are the
 same in both packages.
 
 Precision: ``matmul`` with a ``compute_dtype`` of bfloat16 rounds both
-operands to bf16 and multiplies them in float32, giving a float32 result, as
+operands to bf16 and returns their product in float32, summed in float32, as
 the JAX package's ``jnp.matmul(..., preferred_element_type=float32)`` does
 (``torch.matmul`` of two bf16 tensors would round the result to bf16 too).
+The product of two bf16 values is exact in float32, so the devices differ
+only in the order of the sums. Every bf16 product runs through
+``Bf16Matmul``: on CUDA the bf16 operands go straight to one tensor-core GEMM
+with float32 accumulation and a float32 output; on the CPU, where PyTorch has
+no such kernel, they are widened to float32 and multiplied there. The
+backward is the same on both: float32 products of the float32 upstream
+gradient, each rounded to bf16.
 Importing this module sets ``torch.backends.cuda.matmul.allow_tf32 = False``
 so that float32 products on the GPU stay float32 and do not drop to TF32.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from mswe_gnn_tpu_torch.models.activations import apply_activation, init_activation
 
@@ -48,13 +57,59 @@ def _torch_linear_init(gen: torch.Generator, fan_in: int, fan_out: int,
     return p
 
 
+class Bf16Matmul(torch.autograd.Function):
+    """``x @ w`` (``w`` 2-D, ``x`` of any rank) of the bf16-rounded operands,
+    summed in float32 and returned in float32: on CUDA one bf16 tensor-core
+    GEMM, on the CPU the float32 product of the widened operands. Its backward
+    is what autograd of ``x.to(bf16).float() @ w.to(bf16).float()`` gives:
+    float32 GEMMs of the float32 upstream gradient, rounded to bf16 and
+    returned in each operand's dtype. Only the bf16 operands are saved."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        if xb.is_cuda:
+            y = torch.mm(xb, wb, out_dtype=torch.float32)
+        else:
+            y = xb.float().mm(wb.float())
+        ctx.save_for_backward(xb, wb)
+        ctx.x_shape, ctx.x_dtype, ctx.w_dtype = x.shape, x.dtype, w.dtype
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xb, wb = ctx.saved_tensors
+        dy = dy.reshape(-1, dy.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dy.mm(wb.float().t()).to(torch.bfloat16).to(ctx.x_dtype).reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = xb.float().t().mm(dy).to(torch.bfloat16).to(ctx.w_dtype)
+        return dx, dw
+
+
+# bf16 calls of matmul by (device type, K, N): "cuda" calls are the
+# tensor-core GEMM, "cpu" calls the widened float32 product; reset with
+# reset_matmul_calls()
+matmul_calls: collections.Counter = collections.Counter()
+
+
+def reset_matmul_calls() -> None:
+    matmul_calls.clear()
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """``x @ w``; with ``compute_dtype='bfloat16'`` the operands are rounded to
-    bf16 and the product is taken and returned in float32."""
+    bf16 and the product is summed and returned in float32 (module
+    docstring, "Precision")."""
     if compute_dtype is None or compute_dtype == "float32":
         return x @ w
-    cd = getattr(torch, compute_dtype)
-    return torch.matmul(x.to(cd).float(), w.to(cd).float())
+    if compute_dtype != "bfloat16":
+        raise ValueError(f"compute_dtype {compute_dtype!r}: 'float32' or 'bfloat16'")
+    matmul_calls[x.device.type, *w.shape] += 1
+    return Bf16Matmul.apply(x, w)
 
 
 def mlp_sizes(input_size: int, output_size: int, hidden_size: int, n_layers: int):

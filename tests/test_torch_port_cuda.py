@@ -447,3 +447,61 @@ def test_forced_rollout_step_0_through_the_kernel(cuda):
     limit = 2 * 2.0 ** -8 * float(want.abs().max())
     assert float((got - want).abs().max()) <= limit
     assert float((calm - got).abs().max()) > 0
+
+
+# ------------------------------------------------------------ the bf16 GEMM
+
+def widened_chain(x, w):
+    """``models/mlp.py::matmul``'s bf16 branch as it was before its CUDA path."""
+    return torch.matmul(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("lead,k,n", [((100_000,), 64, 128), ((100_000,), 128, 128),
+                                      ((12_500, 8), 128, 64)])
+def test_bf16_matmul_on_tensor_cores_sums_in_float32(cuda, lead, k, n):
+    """``matmul(x, w, 'bfloat16')`` at the slot tables' shapes: a float32
+    result within float32 summation error of the float64 product of the
+    same bf16-rounded operands (K * 2^-23 * |xb| @ |wb| elementwise: every
+    partial sum rounded once, toward zero at worst). A bf16 result
+    (``torch.mm`` of the bf16 operands) breaks that bound: it is the control
+    that shows the bound catches a product summed or returned below float32.
+    A TF32 product of the unrounded operands breaks it too, but only because
+    its operands are not the bf16-rounded ones (TF32 of the rounded operands
+    would not: bf16 fits in TF32's mantissa), so that case checks the
+    operands' rounding, not how the GEMM sums. The gradients equal the
+    widened chain's to the bit under one upstream gradient, and the call
+    counts as a CUDA call."""
+    from mswe_gnn_tpu_torch.models import mlp
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(*lead, k, generator=gen, device=cuda)
+    w = torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5
+    dy = torch.randn(*lead, n, generator=gen, device=cuda)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+
+    mlp.reset_matmul_calls()
+    y = mlp.matmul(x, w, "bfloat16")
+    assert mlp.matmul_calls == {("cuda", k, n): 1}
+    assert y.dtype == torch.float32 and y.shape == (*lead, n)
+    exact = xb.double() @ wb.double()
+    bound = k * 2.0 ** -23 * (xb.double().abs() @ wb.double().abs())
+
+    def worst(got):
+        return float(((got.double() - exact).abs() / bound).max())
+
+    assert worst(y) <= 1.0
+    assert worst(torch.matmul(xb, wb)) > 1.0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert worst(x @ w) > 1.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    grads = []
+    for fn in (widened_chain, lambda a, b: mlp.matmul(a, b, "bfloat16")):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xg, wg).backward(dy)
+        grads.append((xg.grad, wg.grad))
+    for want, got in zip(*grads):
+        assert_bit_equal(got, want)
